@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of ArtiBoost's synthesis-and-mining loop.
+
+Mirrors the layout of ``artiboost_tpu`` (the JAX reference, which this
+package never imports): ``artiboost/`` (CCV space, pose generation,
+rendering, mining, the loader), ``mano/``, ``models/``, ``ops/`` (the
+rasterizer and its hand-written CUDA kernel under ``csrc/``),
+``metrics/`` and ``utils/``. Entry point: ``python -m artiboost_torch.train``.
+
+Conventions: images are NHWC at public functions; every function that
+draws randomness is split into a ``*_draws(generator, ...)`` half and a
+deterministic half that consumes the draws; entry points run on CUDA
+unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,283 @@
+"""ArtiBoostLoader: the online exploration-and-synthesis orchestrator
+(counterpart of ``artiboost_tpu/artiboost/loader.py``; reference
+``anakin/artiboost/artiboost_loader.py``).
+
+Ported in this slice: construction (including the md5-keyed blacklist
+cache), ``prepare`` (weighted triplet draw + chunked pose sweep),
+``prepare_val`` / ``iter_val`` (the uniform sweep without replacement,
+rendered batch by batch), ``should_val``, ``step_eval`` /
+``sample_reweight`` (mining), ``synth_shutdown`` and the checkpoint
+state. The mixed real/synth train iteration arrives with the train pass.
+
+Randomness comes from a ``DrawSource``: the default draws from one
+``torch.Generator``; a test can hand in one that replays recorded draws."""
+from __future__ import annotations
+
+import hashlib
+import os
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from artiboost_torch.artiboost.ccv import (
+    CCVSpace,
+    build_blacklist_map,
+    init_ccv_space,
+    sample_triplets_draws,
+    triplets_from_flat,
+)
+from artiboost_torch.artiboost.grasp_library import get_grasp_library
+from artiboost_torch.artiboost.mining import UPDATE_METHODS
+from artiboost_torch.artiboost.object_library import get_object_library
+from artiboost_torch.artiboost.pose_generator import GeneratedPoses, PoseGenerator, cat_poses
+from artiboost_torch.artiboost.refiner import build_refiner
+from artiboost_torch.artiboost.renderer import default_render_assets
+from artiboost_torch.artiboost.scrambler import Scrambler
+from artiboost_torch.artiboost.synth_batch import SynthBatch, SynthConfig
+from artiboost_torch.artiboost.view_engine import ViewEngineConfig, persp_rotmat_centers
+from artiboost_torch.mano.model import ManoModel, get_mano_model
+from artiboost_torch.metrics.val_metric import ValMetricMean3DEPE2
+from artiboost_torch.utils.misc import logger, resolve_device
+
+
+class DrawSource:
+    """Every random draw of the loader, from one generator."""
+
+    def __init__(self, generator: torch.Generator, device):
+        self.generator, self.device = generator, device
+
+    def triplets(self, space: CCVSpace, n: int, replace: bool) -> torch.Tensor:
+        return sample_triplets_draws(space, self.generator, n, replace=replace)
+
+    def poses(self, pose_generator, B: int) -> Dict:
+        return pose_generator.draws(self.generator, B, self.device)
+
+    def synth(self, synth_fn: SynthBatch, B: int) -> Dict:
+        return synth_fn.draws(self.generator, B)
+
+
+class ArtiBoostLoader:
+    def __init__(self, cfg: Optional[Dict] = None, batch_size: int = 128,
+                 n_epochs: int = 100, mano_model: Optional[ManoModel] = None,
+                 seed: int = 0, device=None, draws: Optional[DrawSource] = None):
+        cfg = cfg or {}
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.n_epochs = n_epochs
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.draws = draws if draws is not None else DrawSource(self.generator, self.device)
+        self.use_synth = True
+        self.epoch_idx = 0
+
+        obj_cfg = cfg.get("OBJ_ENGINE", {})
+        obj_names = list(obj_cfg.get("OBJ", ["obj_a", "obj_b", "obj_c", "obj_d"]))
+        dataset_type = obj_cfg.get("OBJ_ORIGIN_DATASET", "HO3D")
+        n_grasp = int(cfg.get("GRASP_ENGINE", {}).get("GRASP_NUM", 50))
+        view_node = cfg.get("VIEW_ENGINE", {})
+        z_range = view_node.get("CAMERA_Z_RANGE", [0.45, 0.55])
+        self.view_cfg = ViewEngineConfig(
+            persp_u_bins=int(view_node.get("PERSP_U_BINS", 12)),
+            persp_theta_bins=int(view_node.get("PERSP_THETA_BINS", 24)),
+            camera_z_min=float(z_range[0]), camera_z_max=float(z_range[1]))
+
+        self.mano_model = (mano_model if mano_model is not None
+                           else get_mano_model(device=self.device)).to(self.device)
+        self.obj_lib = get_object_library(obj_names, device=self.device)
+        self.grasp_lib = get_grasp_library(obj_names, n_grasp, device=self.device)
+
+        n_obj, n_persp = len(obj_names), self.view_cfg.n_persp
+        blacklist = None
+        if cfg.get("FILTER", {}).get("BACK", True):
+            # disk cache keyed by engine identity (reference
+            # artiboost_loader.py:428-449)
+            ident = hashlib.md5(repr((
+                sorted(obj_names), dataset_type, n_grasp, self.view_cfg.persp_u_bins,
+                self.view_cfg.persp_theta_bins,
+                self.grasp_lib.hand_pose[..., :3].cpu().numpy().tobytes(),
+            )).encode()).hexdigest()
+            cache_dir = cfg.get("CACHE_DIR", "common/cache/CCV_blacklist_torch")
+            cache_path = os.path.join(cache_dir, f"{ident}.npy")
+            if os.path.isfile(cache_path):
+                blacklist = torch.from_numpy(np.load(cache_path)).to(self.device)
+            else:
+                blacklist = build_blacklist_map(
+                    self.grasp_lib.hand_pose, persp_rotmat_centers(self.view_cfg, self.device))
+                os.makedirs(cache_dir, exist_ok=True)
+                np.save(cache_path, blacklist.cpu().numpy())
+            logger.info(f"blacklist: {float(blacklist.mean()) * 100:.1f}% of "
+                        f"{n_obj * n_persp * n_grasp} CCV triplets filtered")
+        self.ccv = init_ccv_space(n_obj, n_persp, n_grasp, blacklist, device=self.device)
+
+        self.update_method_key = cfg.get("UPDATE_METHOD", "method_1")
+        wu = cfg.get("WEIGHT_UPDATE", {})
+        self.weight_lower = float(wu.get("LOWER", 0.1))
+        self.weight_upper = float(wu.get("UPPER", 10.0))
+        dt = cfg.get("DIST_THRESHOLD", {})
+        self.dist_lower = float(dt.get("LOWER", 8.0))
+        self.dist_upper = float(dt.get("UPPER", 16.0))
+        self.synth_shutdown_ratio = float(cfg.get("SYNTH_SHUTDOWN_RATIO", 0.0))
+        self.last_dist_lower_ratio = -1.0
+
+        scrambler = Scrambler(cfg.get("SCRAMBLER", {"TYPE": "random",
+                                                    "HAND_TSL_SIGMA": 0.01,
+                                                    "HAND_POSE_SIGMA": 0.1}))
+        refiner = build_refiner(cfg.get("REFINER", {"TYPE": "null"}), self.mano_model)
+        self.pose_generator = PoseGenerator(self.mano_model, self.obj_lib, self.grasp_lib,
+                                            self.view_cfg, scrambler, refiner)
+
+        rend = cfg.get("RENDERER", {})
+        cam = rend.get("CAM_PARAM", {})
+        preset = cfg.get("DATA_PRESET", {})
+        if int(rend.get("MOTION_BLUR", 0)) > 1 or not bool(rend.get("TEXTURED", True)) \
+                or bool(rend.get("BILINEAR", False)):
+            raise NotImplementedError("MOTION_BLUR, TEXTURED: false and BILINEAR are "
+                                      "not ported yet")
+        self.synth_cfg = SynthConfig(
+            image_size=int(preset.get("IMAGE_SIZE", [224, 224])[0]),
+            raw_size=int(rend.get("RENDER_SIZE", [512, 512])[0]),
+            fx=float(cam.get("FX", 435.0)), fy=float(cam.get("FY", 435.0)),
+            cx=float(cam.get("CX", 256.0)), cy=float(cam.get("CY", 256.0)),
+            crop_model=preset.get("CROP_MODEL", "root_obj"),
+            center_idx=int(preset.get("CENTER_IDX", 0)),
+            bbox_expand_ratio=float(preset.get("BBOX_EXPAND_RATIO", 1.2)),
+            cull_backfaces=bool(rend.get("CULL_BACKFACES", True)),
+            lod_faces=int(rend.get("LOD_FACES", -1)),
+            tex_subsample=int(rend.get("TEX_SUBSAMPLE", 2)),
+            image_bf16=bool(rend.get("IMAGE_BF16", True)),
+            render_scale=rend.get("RENDER_SCALE"))
+        self.assets = default_render_assets(self.mano_model, bgs_path=rend.get("BGS_PATH"),
+                                            html_path=rend.get("HTML_PATH"),
+                                            device=self.device)
+        self.synth_batch_fn = SynthBatch(self.mano_model, self.obj_lib, self.assets,
+                                         self.synth_cfg, device=self.device)
+
+        self.opg_batch_size = int(cfg.get("OPG_BATCH_SIZE", 1024))
+        self.config_len_train = int(cfg.get("CONFIG_LEN_TRAIN", batch_size))
+        self.generated: Optional[GeneratedPoses] = None
+        self.has_val_sweep = "VAL_LEN" in cfg
+        self.config_len_val = int(cfg.get("VAL_LEN", self.config_len_train))
+        self.val_start_epoch = int(cfg.get("VAL_START_EPOCH", 0))
+        self.val_freq = int(cfg.get("VAL_FREQ", 1))
+        self.generated_val: Optional[GeneratedPoses] = None
+
+    # ---- epoch lifecycle ----
+    def prepare(self):
+        """Weighted triplet draw (with replacement) + the epoch's pose cache."""
+        if not self.use_synth:
+            return
+        flat = self.draws.triplets(self.ccv, self.config_len_train, replace=True)
+        oid, vid, gid, occ = triplets_from_flat(self.ccv, flat)
+        self.ccv = self.ccv._replace(occurrence_map=occ)
+        self.generated = self._generate_poses(oid, vid, gid)
+
+    def _generate_poses(self, oid, vid, gid) -> GeneratedPoses:
+        """Pose sweep in fixed-size chunks (OPG_BATCH_SIZE), the tail
+        repeat-padded to a full chunk and trimmed after."""
+        n = int(oid.shape[0])
+        chunk = min(self.opg_batch_size, n)
+        n_pad = -(-n // chunk) * chunk
+        if n_pad != n:
+            pad = n_pad - n
+            oid, vid, gid = (torch.cat([x, x[:pad]]) for x in (oid, vid, gid))
+        pieces = []
+        for s in range(0, n_pad, chunk):
+            draws = self.draws.poses(self.pose_generator, chunk)
+            pieces.append(self.pose_generator(oid[s:s + chunk], vid[s:s + chunk],
+                                              gid[s:s + chunk], draws))
+        return cat_poses(pieces, n)
+
+    def prepare_val(self):
+        """Val sweep (reference ovg_set.py:104-132): uniform weights masked
+        by the blacklist, drawn WITHOUT replacement, VAL_LEN long (rounded
+        down to whole batches)."""
+        if not self.use_synth:
+            return
+        O, V, G = self.ccv.shape
+        n_valid = O * V * G - int(self.ccv.blacklist_map.sum())
+        n = max(min(self.config_len_val, n_valid), 1)
+        if n >= self.batch_size:
+            n = (n // self.batch_size) * self.batch_size
+        uniform = self.ccv._replace(sample_weight_map=torch.ones_like(self.ccv.sample_weight_map))
+        flat = self.draws.triplets(uniform, n, replace=False)
+        oid, vid, gid, occ = triplets_from_flat(self.ccv, flat)
+        self.ccv = self.ccv._replace(occurrence_map=occ)
+        self.generated_val = self._generate_poses(oid, vid, gid)
+        logger.info(f"val sweep: {n} triplets drawn w/o replacement "
+                    f"({n_valid} non-blacklisted of {O * V * G})")
+
+    def should_val(self, epoch_idx: int) -> bool:
+        return (self.use_synth and self.has_val_sweep
+                and epoch_idx + 1 >= self.val_start_epoch
+                and epoch_idx % self.val_freq == self.val_freq - 1)
+
+    def iter_val(self) -> Iterator[Dict]:
+        """Pure-synth val batches in draw order (each triplet once)."""
+        if self.generated_val is None:
+            raise RuntimeError("prepare_val() must run before iter_val()")
+        n = int(self.generated_val.obj_id.shape[0])
+        bs = min(self.batch_size, n)
+        for s in range(0, n - bs + 1, bs):
+            idx = torch.arange(s, s + bs, device=self.device)
+            draws = self.draws.synth(self.synth_batch_fn, bs)
+            yield self.synth_batch_fn(self.generated_val, idx, draws)
+
+    # ---- mining ----
+    def step_eval(self, epoch_idx: int, evaluator) -> None:
+        """Collect the per-triplet val maps from the evaluator and reweight."""
+        self.epoch_idx = epoch_idx
+        if not self.use_synth:
+            return
+        maps = [m.get_averaged_maps() for m in evaluator.metrics_list
+                if isinstance(m, ValMetricMean3DEPE2)]
+        if not maps:
+            logger.warning("no ValMetric found; skipping ArtiBoost reweight")
+            return
+        avg = sum(m[0] for m in maps) / len(maps)
+        seen = maps[0][1]
+        for m in maps[1:]:
+            seen = seen & m[1]
+        self.sample_reweight(avg, seen, epoch_idx)
+        logger.info(f"ArtiBoost finished mining after epoch {epoch_idx}")
+
+    def sample_reweight(self, val_map, seen, epoch_idx: int):
+        update = UPDATE_METHODS[self.update_method_key](
+            self.ccv.sample_weight_map, val_map, seen, self.weight_lower, self.weight_upper,
+            dist_lower_threshold=self.dist_lower, dist_upper_threshold=self.dist_upper,
+            epoch_idx=epoch_idx, n_epochs=self.n_epochs)
+        self.ccv = self.ccv._replace(sample_weight_map=update["sample_weight_map"])
+        if "dist_lower_ratio" in update:
+            ratio = float(update["dist_lower_ratio"])
+            self.last_dist_lower_ratio = ratio
+            if ratio >= 0 and 0 < self.synth_shutdown_ratio <= ratio:
+                # no real dataset in this slice: synthesis stays alive
+                logger.warning(f"dist_lower_ratio {ratio:.2%} >= SYNTH_SHUTDOWN_RATIO "
+                               f"{self.synth_shutdown_ratio:.2%} but there is no real "
+                               "dataset to continue on; keeping synthesis alive")
+
+    def synth_shutdown(self):
+        self.use_synth = False
+        self.generated = None
+        self.generated_val = None
+        logger.warning("shut down synth dataset engine")
+
+    # ---- checkpoint state (reference recorder.py:177-226) ----
+    def state_dict(self) -> Dict:
+        return {
+            "sample_weight_map": self.ccv.sample_weight_map.cpu().numpy(),
+            "occurrence_map": self.ccv.occurrence_map.cpu().numpy(),
+            "use_synth": self.use_synth,
+            "epoch_idx": self.epoch_idx,
+            "rng_state": self.generator.get_state().cpu().numpy(),
+        }
+
+    def load_state_dict(self, state: Dict):
+        self.ccv = self.ccv._replace(
+            sample_weight_map=torch.as_tensor(state["sample_weight_map"]).to(self.device),
+            occurrence_map=torch.as_tensor(state["occurrence_map"]).to(self.device))
+        if not state.get("use_synth", True):
+            self.synth_shutdown()
+        self.epoch_idx = int(state.get("epoch_idx", 0))
+        if "rng_state" in state:
+            self.generator.set_state(torch.as_tensor(state["rng_state"]))

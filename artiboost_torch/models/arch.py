@@ -1,8 +1,9 @@
 """Arch: DAG-of-models composer (counterpart of
 ``artiboost_tpu/models/arch.py``; reference ``anakin/models/arch.py``).
 The single root (the model no other consumes) is evaluated bottom-up,
-each node's input dict merged with its upstream outputs. Eval-mode
-forward only in this slice."""
+each node's input dict merged with its upstream outputs. ``train()`` /
+``eval()`` switch the BatchNorms between batch and running statistics,
+as flax's ``train`` flag does."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
@@ -11,7 +12,6 @@ import torch
 from torch import nn
 
 from artiboost_torch.models.hybrid_baseline import build_hybrid_baseline
-from artiboost_torch.utils.misc import resolve_dtype
 
 MODELS = {"HybridBaseline": build_hybrid_baseline}
 
@@ -43,8 +43,8 @@ class Arch(nn.Module):
 
 
 def build_arch(arch_cfg, data_preset: Dict[str, Any]) -> Arch:
-    """The YAML ``ARCH`` entry (dict or list of dicts) -> Arch. ``DTYPE``
-    is not applied yet: the port computes in float32."""
+    """The YAML ``ARCH`` entry (dict or list of dicts) -> Arch. Each model
+    applies its own ``DTYPE`` (float32 when absent)."""
     if isinstance(arch_cfg, dict):
         arch_cfg = [arch_cfg]
     names = [c["TYPE"] for c in arch_cfg]
@@ -52,10 +52,6 @@ def build_arch(arch_cfg, data_preset: Dict[str, Any]) -> Arch:
     for c in arch_cfg:
         if c["TYPE"] not in MODELS:
             raise NotImplementedError(f"model {c['TYPE']!r} is not ported yet")
-        if resolve_dtype(c.get("DTYPE")) != torch.float32:
-            from artiboost_torch.utils.misc import logger
-
-            logger.warning(f"ARCH.DTYPE {c.get('DTYPE')} is not ported yet; computing in float32")
         models.append(MODELS[c["TYPE"]](c, data_preset))
         previous.append(tuple(names.index(p) for p in (c.get("PREVIOUS") or [])))
     return Arch(models, names, previous)

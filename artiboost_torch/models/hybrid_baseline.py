@@ -4,7 +4,10 @@
 IntegralDeconvHead over 22 classes (21 joints + box root), and an MLP
 predicting the object's 6D rotation; corners are R @ corners_can +
 boxroot and reprojected for the 2D output. Inputs are NHWC images,
-converted to NCHW inside."""
+converted to NCHW inside. ``ARCH.DTYPE`` sets the compute dtype of the
+three sub-networks (a sub-network's own DTYPE overrides it, as in
+``hybrid_baseline.py:82-87``); their outputs and the geometry are
+float32."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -16,7 +19,7 @@ from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.models.integral_head import IntegralDeconvHead
 from artiboost_torch.models.mlp import MLP
 from artiboost_torch.models.resnet import build_resnet
-from artiboost_torch.utils.misc import CONST
+from artiboost_torch.utils.misc import CONST, resolve_dtype
 from artiboost_torch.utils.transform import batch_uvd2xyz, rot6d_to_rotmat
 
 
@@ -31,8 +34,7 @@ class HybridBaseline(nn.Module):
     def forward(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         image = inputs[Queries.IMAGE]  # (B, H, W, 3)
         height, width = image.shape[1], image.shape[2]
-        dtype = next(self.parameters()).dtype
-        feats = self.backbone(image.permute(0, 3, 1, 2).to(dtype).contiguous())
+        feats = self.backbone(image.permute(0, 3, 1, 2).contiguous())
         pose = self.hybrid_head(feats["res_layer4"])
         box_rot_6d = self.box_head(feats["res_layer4_mean"])
 
@@ -65,7 +67,10 @@ class HybridBaseline(nn.Module):
 
 
 def build_hybrid_baseline(cfg: Dict, data_preset: Dict) -> HybridBaseline:
-    backbone = build_resnet(cfg["BACKBONE"])
+    def dtype(sub: Dict) -> torch.dtype:
+        return resolve_dtype(sub.get("DTYPE", cfg.get("DTYPE")))
+
+    backbone = build_resnet(cfg["BACKBONE"], dtype(cfg["BACKBONE"]))
     h = cfg["HYBRID_HEAD"]
     head = IntegralDeconvHead(
         in_channels=h.get("INPUT_CHANNEL", backbone.out_channels),
@@ -74,10 +79,10 @@ def build_hybrid_baseline(cfg: Dict, data_preset: Dict) -> HybridBaseline:
         deconv_filters=tuple(h.get("NUM_DECONV_FILTERS", (256, 256))),
         deconv_kernels=tuple(h.get("NUM_DECONV_KERNELS", (4, 4))),
         deconv_with_bias=h.get("DECONV_WITH_BIAS", False),
-        final_conv_kernel=h.get("FINAL_CONV_KERNEL", 1))
+        final_conv_kernel=h.get("FINAL_CONV_KERNEL", 1), dtype=dtype(h))
     b = cfg["BOX_HEAD"]
     box = MLP(layers_n=tuple(b.get("LAYERS_N", (512, 256, 128))),
-              out_channel=b.get("OUT_CHANNEL", 6))
+              out_channel=b.get("OUT_CHANNEL", 6), dtype=dtype(b))
     return HybridBaseline(backbone, head, box,
                           inp_res=tuple(data_preset.get("IMAGE_SIZE", (224, 224))),
                           center_idx=data_preset.get("CENTER_IDX", 9))

@@ -2,7 +2,11 @@
 ``artiboost_tpu/models/integral_head.py``; reference
 ``anakin/models/simplebaseline.py:16-190``): deconv upsampling, 1x1 conv
 to NCLASSES*DEPTH channels, global softmax over each class's 3D heatmap,
-integral regression to normalized uvd, confidence = heatmap max."""
+integral regression to normalized uvd, confidence = heatmap max.
+
+The deconvs, their BatchNorms and the final conv compute in ``dtype``
+(``integral_head.py:62-74``); the softmax and the integral are float32
+(``:80-92``)."""
 from __future__ import annotations
 
 from typing import Dict, Sequence
@@ -10,30 +14,34 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
+from artiboost_torch.models.layers import BatchNorm2d, Conv2d, ConvTranspose2d
+
 
 class IntegralDeconvHead(nn.Module):
     def __init__(self, in_channels: int = 512, nclasses: int = 22, depth_res: int = 28,
                  norm_type: str = "softmax", deconv_filters: Sequence[int] = (256, 256),
                  deconv_kernels: Sequence[int] = (4, 4), deconv_with_bias: bool = False,
-                 final_conv_kernel: int = 1):
+                 final_conv_kernel: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         if norm_type != "softmax":
             raise NotImplementedError(f"NORM_TYPE {norm_type!r} is not ported yet")
-        self.nclasses, self.depth_res = nclasses, depth_res
+        self.nclasses, self.depth_res, self.dtype = nclasses, depth_res, dtype
         layers, cin = [], in_channels
         for f, k in zip(deconv_filters, deconv_kernels):
             if k != 4:
                 raise NotImplementedError("deconv kernels other than 4 are not ported yet")
-            layers += [nn.ConvTranspose2d(cin, f, k, 2, 1, bias=deconv_with_bias),
-                       nn.BatchNorm2d(f, eps=1e-5), nn.ReLU()]
+            layers += [ConvTranspose2d(cin, f, k, 2, 1, bias=deconv_with_bias,
+                                       compute_dtype=dtype),
+                       BatchNorm2d(f, dtype), nn.ReLU()]
             cin = f
         self.deconv_layers = nn.Sequential(*layers)
         pad = 1 if final_conv_kernel == 3 else 0
-        self.final_layer = nn.Conv2d(cin, nclasses * depth_res, final_conv_kernel, 1, pad)
+        self.final_layer = Conv2d(cin, nclasses * depth_res, final_conv_kernel, 1, pad,
+                                  compute_dtype=dtype)
 
     def forward(self, feature: torch.Tensor) -> Dict[str, torch.Tensor]:
         """feature (B, C, h, w) -> {"kp3d": (B, NC, 3) uvd, "kp3d_confd": (B, NC)}."""
-        x = self.final_layer(self.deconv_layers(feature)).float()
+        x = self.final_layer(self.deconv_layers(feature.to(self.dtype))).float()
         B, _, H, W = x.shape
         x = x.reshape(B, self.nclasses, self.depth_res, H, W)
         m = x.amax(dim=(2, 3, 4), keepdim=True)

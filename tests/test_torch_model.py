@@ -69,3 +69,37 @@ def test_hybrid_baseline_forward(seed):
     for k in ("joints_3d_abs", "corners_3d_abs"):
         np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]), atol=2e-6, rtol=0,
                                    err_msg=k)
+
+
+def test_bf16_forward_against_jax():
+    """``ARCH.DTYPE: bfloat16`` in the port, at the sizes of tests/test_bf16.py
+    (ResNet18, deconv 2 x 64, depth 8, 64 x 64 images, flax initialisation
+    carried across): float32 outputs; the camera-space joints and corners
+    within 5e-3 of the JAX float32 forward (the bound tests/test_bf16.py
+    holds JAX's own bf16 to) and within 1e-2 of the JAX bf16 forward (both
+    sides round to bf16 at different places). The 2D uvd output is held
+    within 1e-2 of both: JAX's own bf16 moves it by 7.0e-3 from float32,
+    more than 5e-3, through the box head's reprojected corners. Measured
+    (port bf16): joints 9.7e-6 / 3.8e-6, corners 5.5e-4 / 3.0e-4, uvd
+    5.3e-3 / 3.1e-3 against JAX float32 / bf16."""
+    from tests.test_bf16 import ARCH_CFG, PRESET, _batch as bf16_batch
+
+    batch = bf16_batch()
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    j32 = j_build_arch(dict(ARCH_CFG), PRESET)
+    j16 = j_build_arch({**ARCH_CFG, "DTYPE": "bfloat16"}, PRESET)
+    variables = j32.init(jax.random.PRNGKey(0), jbatch, train=False)
+    out32 = j32.apply(variables, jbatch, train=False)
+    out16 = j16.apply(variables, jbatch, train=False)
+    tarch = t_build_arch({**ARCH_CFG, "DTYPE": "bfloat16"}, PRESET).eval()
+    tarch.model_list[0].load_state_dict(hybrid_baseline_from_flax(jax.tree_util.tree_map(
+        np.asarray, {"params": variables["params"]["model_list_0"],
+                     "batch_stats": variables["batch_stats"]["model_list_0"]})))
+    with torch.no_grad():
+        tout = tarch({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert tarch.model_list[0].backbone.conv1.compute_dtype == torch.bfloat16
+    for k, bound32 in (("joints_3d_abs", 5e-3), ("corners_3d_abs", 5e-3), ("2d_uvd", 1e-2)):
+        assert tout[k].dtype == torch.float32, k
+        got = tout[k].numpy()
+        assert np.abs(got - np.asarray(out32[k])).max() < bound32, k
+        assert np.abs(got - np.asarray(out16[k])).max() < 1e-2, k

@@ -2,12 +2,14 @@
 (counterpart of ``artiboost_tpu/artiboost/loader.py``; reference
 ``anakin/artiboost/artiboost_loader.py``).
 
-Ported in this slice: construction (including the md5-keyed blacklist
-cache), ``prepare`` (weighted triplet draw + chunked pose sweep),
-``prepare_val`` / ``iter_val`` (the uniform sweep without replacement,
-rendered batch by batch), ``should_val``, ``step_eval`` /
-``sample_reweight`` (mining), ``synth_shutdown`` and the checkpoint
-state. The mixed real/synth train iteration arrives with the train pass.
+Ported: construction (including the md5-keyed blacklist cache),
+``prepare`` (weighted triplet draw + chunked pose sweep), the mixed
+real/synth train iteration (``__iter__`` and ``iter_parts``, with the
+epoch's real and synth permutations), ``prepare_val`` / ``iter_val``
+(the uniform sweep without replacement, rendered batch by batch),
+``should_val``, ``step_eval`` / ``sample_reweight`` (mining),
+``synth_shutdown`` and the checkpoint state. The mesh (multi-device)
+branches wait for the multi-GPU slice.
 
 Randomness comes from a ``DrawSource``: the default draws from one
 ``torch.Generator``; a test can hand in one that replays recorded draws."""
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ from artiboost_torch.artiboost.synth_batch import SynthBatch, SynthConfig
 from artiboost_torch.artiboost.view_engine import ViewEngineConfig, persp_rotmat_centers
 from artiboost_torch.mano.model import ManoModel, get_mano_model
 from artiboost_torch.metrics.val_metric import ValMetricMean3DEPE2
+from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.misc import logger, resolve_device
 
 
@@ -56,11 +59,23 @@ class DrawSource:
     def synth(self, synth_fn: SynthBatch, B: int) -> Dict:
         return synth_fn.draws(self.generator, B)
 
+    def perm_seed(self) -> int:
+        """Seed of one epoch permutation (numpy RandomState, as the JAX
+        package seeds it from ``jax.random.randint``)."""
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.generator,
+                                 device=self.device))
+
+    def loss(self, criterion) -> List[Dict]:
+        """The criterion's draws for one step."""
+        return criterion.draws(self.generator, self.device)
+
 
 class ArtiBoostLoader:
-    def __init__(self, cfg: Optional[Dict] = None, batch_size: int = 128,
+    def __init__(self, real_dataset=None, cfg: Optional[Dict] = None, batch_size: int = 128,
                  n_epochs: int = 100, mano_model: Optional[ManoModel] = None,
                  seed: int = 0, device=None, draws: Optional[DrawSource] = None):
+        """``real_dataset`` has ``sample_batch(idx) -> dict`` and a length
+        (an ``HODataset``), or is None for synth-only training."""
         cfg = cfg or {}
         self.device = resolve_device(device)
         self.batch_size = batch_size
@@ -154,7 +169,11 @@ class ArtiBoostLoader:
                                          self.synth_cfg, device=self.device)
 
         self.opg_batch_size = int(cfg.get("OPG_BATCH_SIZE", 1024))
-        self.config_len_train = int(cfg.get("CONFIG_LEN_TRAIN", batch_size))
+        # epoch sizing (reference: synth_len = synth_factor * len(real))
+        self.real_dataset = real_dataset
+        self.synth_factor = float(cfg.get("SYNTH_FACTOR", 0.6))
+        self.config_len_train = int(cfg.get(
+            "CONFIG_LEN_TRAIN", max(int(self.synth_factor * self._real_len()), batch_size)))
         self.generated: Optional[GeneratedPoses] = None
         self.has_val_sweep = "VAL_LEN" in cfg
         self.config_len_val = int(cfg.get("VAL_LEN", self.config_len_train))
@@ -223,6 +242,74 @@ class ArtiBoostLoader:
             draws = self.draws.synth(self.synth_batch_fn, bs)
             yield self.synth_batch_fn(self.generated_val, idx, draws)
 
+    # ---- the train epoch: mixed real/synth batches ----
+    def _real_len(self) -> int:
+        return len(self.real_dataset) if self.real_dataset is not None else 0
+
+    def _mixed_counts(self) -> Tuple[int, int]:
+        """(real, synth) samples per batch, in proportion to the epoch's
+        real length and CONFIG_LEN_TRAIN (loader.py:365-381)."""
+        real_len = self._real_len()
+        synth_len = self.config_len_train if self.use_synth else 0
+        if real_len + synth_len == 0:
+            return 0, 0
+        n_synth = self.batch_size if real_len == 0 else int(
+            round(self.batch_size * synth_len / (real_len + synth_len)))
+        return self.batch_size - n_synth, n_synth
+
+    def _synth_epoch_perm(self, seed: int) -> np.ndarray:
+        """Fresh permutation of the pose cache: every synth sample is
+        visited once per epoch (slices wrap when the epoch needs more)."""
+        return np.random.RandomState(seed).permutation(self.generated.obj_id.shape[0])
+
+    def _sample_synth_idx(self, perm: np.ndarray, b: int, n_synth: int) -> torch.Tensor:
+        start = b * n_synth
+        idx = perm[np.arange(start, start + n_synth) % len(perm)]
+        return torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+
+    def __len__(self) -> int:
+        synth_len = self.config_len_train if self.use_synth else 0
+        return max((self._real_len() + synth_len) // self.batch_size, 1)
+
+    def iter_parts(self) -> Iterator[Tuple[Optional[Dict], Optional[torch.Tensor]]]:
+        """(real batch or None, synth pose indices or None) per step; the
+        synth half is rendered by the caller (``synth_part``), as the JAX
+        package's pipelined step does (loader.py:434-469). Both epoch
+        permutations are drawn when the iterator is made."""
+        n_real, n_synth = self._mixed_counts()
+        real_len = self._real_len()
+        real_perm = np.random.RandomState(self.draws.perm_seed()).permutation(max(real_len, 1))
+        use_synth = bool(n_synth) and self.generated is not None
+        synth_perm = self._synth_epoch_perm(self.draws.perm_seed()) if use_synth else None
+        n_batches = len(self)
+
+        def parts():
+            real_ptr = 0
+            for b in range(n_batches):
+                real_batch = None
+                if n_real and self.real_dataset is not None:
+                    idx = [int(real_perm[(real_ptr + i) % real_len]) for i in range(n_real)]
+                    real_ptr += n_real
+                    real_batch = self.real_dataset.sample_batch(idx)
+                yield real_batch, (self._sample_synth_idx(synth_perm, b, n_synth)
+                                   if use_synth else None)
+
+        return parts()
+
+    def synth_part(self, sidx: torch.Tensor) -> Dict:
+        """Render the synth half of a train batch from the epoch's poses."""
+        return self.synth_batch_fn(self.generated, sidx,
+                                   self.draws.synth(self.synth_batch_fn, int(sidx.shape[0])))
+
+    def __iter__(self) -> Iterator[Dict]:
+        """Mixed batches over the key union (``utils.batching.union_concat``:
+        a key one half lacks is filled and masked under KEY_VALID)."""
+        for real, sidx in self.iter_parts():
+            parts = [p for p in (real, None if sidx is None else self.synth_part(sidx)) if p]
+            if not parts:
+                raise RuntimeError("ArtiBoostLoader has neither real nor synth data")
+            yield union_concat(parts)
+
     # ---- mining ----
     def step_eval(self, epoch_idx: int, evaluator) -> None:
         """Collect the per-triplet val maps from the evaluator and reweight."""
@@ -251,10 +338,15 @@ class ArtiBoostLoader:
             ratio = float(update["dist_lower_ratio"])
             self.last_dist_lower_ratio = ratio
             if ratio >= 0 and 0 < self.synth_shutdown_ratio <= ratio:
-                # no real dataset in this slice: synthesis stays alive
-                logger.warning(f"dist_lower_ratio {ratio:.2%} >= SYNTH_SHUTDOWN_RATIO "
-                               f"{self.synth_shutdown_ratio:.2%} but there is no real "
-                               "dataset to continue on; keeping synthesis alive")
+                if self.real_dataset is None:
+                    logger.warning(f"dist_lower_ratio {ratio:.2%} >= SYNTH_SHUTDOWN_RATIO "
+                                   f"{self.synth_shutdown_ratio:.2%} but there is no real "
+                                   "dataset to continue on; keeping synthesis alive")
+                else:
+                    logger.warning(f"dist_lower_ratio {ratio:.2%} >= SYNTH_SHUTDOWN_RATIO "
+                                   f"{self.synth_shutdown_ratio:.2%}: early synth shutdown; "
+                                   "training continues real-only")
+                    self.synth_shutdown()
 
     def synth_shutdown(self):
         self.use_synth = False

@@ -2,11 +2,11 @@
 of ``artiboost_tpu/artiboost/renderer.py``; reference
 ``anakin/utils/renderer.py``). The parts on the synthesis path: the
 synthetic asset banks, scene composition and render LOD, Lambert shade,
-the per-pixel UV raster (kernel in ``ops/rasterizer_cuda.py``), the
-texel gather, the background composite, blur and colour jitter.
+the per-pixel UV raster and the Gouraud raster (kernels in
+``ops/rasterizer_cuda.py``), the texel gather, the background composite,
+blur and colour jitter.
 
-Queued: the Gouraud raster branch (``TEXTURED: false``), motion blur and
-the loaders of real background / HTML hand assets."""
+Queued: motion blur and the loaders of real background / HTML hand assets."""
 from __future__ import annotations
 
 import os
@@ -20,10 +20,11 @@ from artiboost_torch.mano.model import ManoModel
 from artiboost_torch.ops.rasterizer import (
     build_face_incidence,
     project_verts,
+    shade_vertices,
     vertex_normals,
     vertex_normals_indexed,
 )
-from artiboost_torch.ops.rasterizer_cuda import rasterize_batch_uv
+from artiboost_torch.ops.rasterizer_cuda import rasterize_batch_rgb, rasterize_batch_uv
 from artiboost_torch.utils.misc import logger, resolve_device
 
 
@@ -352,10 +353,10 @@ def render_scene(verts: torch.Tensor, colors: torch.Tensor, faces: torch.Tensor,
                  texturing: Optional[SceneTextures] = None, tex_subsample: int = 1,
                  out_size: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shade + rasterize (UV kernel) + texture + composite -> (rgb (B, H, W, 3), depth)."""
-    if texturing is None:
-        raise NotImplementedError("the Gouraud raster branch is not ported yet; "
-                                  "the UV path needs textures")
+    """Shade + rasterize + composite -> (rgb (B, H, W, 3), depth). With
+    ``texturing`` the UV kernel interpolates (u, v, shade, page) and the
+    texels are gathered after it; without, the vertices are Gouraud-shaded
+    and the rgb kernel interpolates their colours."""
     light_int = draws["light"] * 0.05
     if incidence is not None:
         normals = vertex_normals_indexed(verts, faces, incidence)
@@ -363,14 +364,20 @@ def render_scene(verts: torch.Tensor, colors: torch.Tensor, faces: torch.Tensor,
         normals = vertex_normals(verts, faces)
     light_pos = torch.tensor([[0.3, -0.3, -0.3]], device=verts.device)
     vs = project_verts(verts, intr)
-    s = shade_intensity(verts, normals, ambient, light_pos, light_int)
-    is_hand = torch.arange(verts.shape[1], device=verts.device)[None, :] < texturing.n_hand_verts
-    vp = torch.where(is_hand, texturing.hand_page[:, None].float(),
-                     texturing.obj_page[:, None].float())
-    attrs = torch.cat([texturing.uv, s[..., None], vp[..., None]], dim=-1)
-    quv, sh, pg, _win, depth = rasterize_batch_uv(vs, attrs, faces, face_valid, height,
-                                                  width, cull_backfaces=cull_backfaces)
-    rgb = sample_textures(quv, sh, pg, texturing, subsample=tex_subsample)
+    if texturing is not None:
+        s = shade_intensity(verts, normals, ambient, light_pos, light_int)
+        is_hand = torch.arange(verts.shape[1], device=verts.device)[None, :] < texturing.n_hand_verts
+        vp = torch.where(is_hand, texturing.hand_page[:, None].float(),
+                         texturing.obj_page[:, None].float())
+        attrs = torch.cat([texturing.uv, s[..., None], vp[..., None]], dim=-1)
+        quv, sh, pg, _win, depth = rasterize_batch_uv(vs, attrs, faces, face_valid, height,
+                                                      width, cull_backfaces=cull_backfaces)
+        rgb = sample_textures(quv, sh, pg, texturing, subsample=tex_subsample)
+    else:
+        shaded = shade_vertices(verts, normals, colors, ambient, light_pos, light_int,
+                                torch.ones((1, 3), device=verts.device))
+        rgb, depth = rasterize_batch_rgb(vs, shaded, faces, face_valid, height, width,
+                                         cull_backfaces=cull_backfaces)
 
     if out_size is not None and tuple(out_size) != (height, width):
         oh, ow = out_size

@@ -1,7 +1,8 @@
 """Pose scramblers (counterpart of ``artiboost_tpu/artiboost/scrambler.py``;
-reference ``anakin/artiboost/scrambler.py``). Ported: ``random``, the
-axis-angle magnitude noise on all 16 joints plus translation noise
-(reference :57-81). ``naive``, ``random_2`` and ``random_3`` are queued."""
+reference ``anakin/artiboost/scrambler.py``). Ported: ``naive``, translation noise
+only (reference :38-54), and ``random``, the axis-angle magnitude noise
+on all 16 joints plus translation noise (reference :57-81). ``random_2``
+and ``random_3`` are queued."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,6 +10,18 @@ from typing import Dict
 import torch
 
 from artiboost_torch.utils.misc import resolve_device
+
+
+def naive_scrambler_draws(generator: torch.Generator, B: int, device=None
+                          ) -> Dict[str, torch.Tensor]:
+    """Standard-normal translation draws (B, 3)."""
+    device = resolve_device(device)
+    return {"tsl": torch.randn(B, 3, generator=generator, device=device)}
+
+
+def naive_scrambler(feed: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor],
+                    tsl_sigma: float, pose_sigma: float) -> Dict[str, torch.Tensor]:
+    return {"hand_pose": feed["hand_pose"], "hand_tsl": feed["hand_tsl"] + draws["tsl"] * tsl_sigma}
 
 
 def random_scrambler_draws(generator: torch.Generator, B: int, device=None
@@ -31,7 +44,8 @@ def random_scrambler(feed: Dict[str, torch.Tensor], draws: Dict[str, torch.Tenso
             "hand_tsl": feed["hand_tsl"] + draws["tsl"] * tsl_sigma}
 
 
-SCRAMBLERS = {"random": (random_scrambler_draws, random_scrambler)}
+SCRAMBLERS = {"naive": (naive_scrambler_draws, naive_scrambler),
+              "random": (random_scrambler_draws, random_scrambler)}
 
 
 class Scrambler:

@@ -35,6 +35,13 @@ def tie_scene() -> Dict:
             "valid": np.ones((1, 2), np.float32), "H": 32, "W": 32}
 
 
+def rgb_attrs(scene: Dict) -> np.ndarray:
+    """Per-vertex colours for the Gouraud raster, derived from the scene's
+    (u, v, shade, page) attrs without further draws: (u, v, shade / 3.5),
+    so the shade channel spans [0, 1] like the other two."""
+    return (scene["attrs"][..., :3] / np.float32([1.0, 1.0, 3.5])).astype(np.float32)
+
+
 def raster_check_scenes(seed: int = 0) -> Dict[str, Dict]:
     """F = 60 (one chunk), F = 700 (6 chunks), F = 700 with ~30 % of the
     faces invalid on a non-square frame, and the tie."""

@@ -111,6 +111,24 @@ def build_face_incidence(faces: np.ndarray, n_verts: int, min_degree: int = 0) -
     return inc
 
 
+def shade_vertices(verts: torch.Tensor, normals: torch.Tensor, base_color: torch.Tensor,
+                   ambient: float, light_pos: torch.Tensor, light_intensity: torch.Tensor,
+                   light_color: torch.Tensor) -> torch.Tensor:
+    """Lambertian per-vertex (Gouraud) shading, batched: verts, normals,
+    base_color (B, V, 3), light_pos (L, 3), light_intensity (B, L),
+    light_color (L, 3) -> clip(base_color * (ambient + sum_l two-sided
+    lambert_l * intensity_l / dist2_l * color_l), 0, 1) (pyrender's
+    ambient 0.8 plus random point lights, reference renderer.py:78,104)."""
+    to_light = light_pos[None, :, None] - verts[:, None]  # (B, L, V, 3)
+    dist2 = torch.sum(to_light * to_light, dim=-1)
+    dirn = to_light / torch.clamp_min(torch.sqrt(dist2)[..., None], 1e-8)
+    lam = torch.abs(torch.einsum("blvk,bvk->blv", dirn, normals))
+    contrib = light_intensity[..., None] * lam / torch.clamp_min(dist2, 1e-4)
+    shade = ambient * torch.ones_like(base_color) + torch.einsum("blv,lc->bvc", contrib,
+                                                                 light_color)
+    return torch.clamp(base_color * shade, 0.0, 1.0)
+
+
 def vertex_normals_indexed(verts: torch.Tensor, faces: torch.Tensor,
                            incidence: torch.Tensor) -> torch.Tensor:
     """Area-weighted vertex normals as D gathers over a precomputed

@@ -1,0 +1,96 @@
+"""Masked-union assembly of mixed real/synth batches (counterpart of
+``artiboost_tpu/utils/batching.py``).
+
+The real and synth halves come from different pipelines and can disagree
+on keys. ``union_concat`` takes the key UNION: a part missing a key is
+zero-filled (integer id keys get -1) and a per-key per-sample validity
+mask is emitted under ``KEY_VALID``. Every loss folds the masks of the
+keys it reads into its per-sample weighting through ``key_validity``, so
+filled samples contribute exactly zero. When every part carries every
+key, no mask dict is emitted and the batch is a plain concatenation."""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+# reserved batch key: {query name: (B,) float32, 1 = annotated / 0 = filled}
+KEY_VALID = "_key_valid"
+
+# integer id keys whose natural missing value is -1, not 0
+_NEG_ONE_FILL = {"sample_idx", "obj_id", "persp_id", "grasp_id", "obj_idx"}
+
+
+def _batch_size(part: Dict) -> int:
+    for k, v in part.items():
+        if k != KEY_VALID:
+            return int(v.shape[0])
+    raise ValueError("empty batch part")
+
+
+def _fill(key: str, template: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero (or -1 for id keys) in the shape of ``template`` with the batch
+    dim replaced by n."""
+    shape = (n,) + tuple(template.shape[1:])
+    if key in _NEG_ONE_FILL and not template.is_floating_point():
+        return torch.full(shape, -1, dtype=template.dtype, device=template.device)
+    return torch.zeros(shape, dtype=template.dtype, device=template.device)
+
+
+def union_concat(parts: Sequence[Dict]) -> Dict:
+    """Concatenate batch parts along dim 0 over the union of their keys.
+    Parts may carry ``KEY_VALID`` masks themselves; they compose. Tensors
+    of different dtypes promote (a bf16 image half and a float32 one give
+    float32)."""
+    parts = [p for p in parts if p]
+    if len(parts) == 1:
+        return dict(parts[0])
+    sizes = [_batch_size(p) for p in parts]
+    all_keys: List[str] = []
+    for p in parts:
+        all_keys += [k for k in p if k != KEY_VALID and k not in all_keys]
+
+    out: Dict = {}
+    masks: Dict[str, torch.Tensor] = {}
+    for k in all_keys:
+        template = next(p[k] for p in parts if k in p)
+        cols, mcols, any_missing = [], [], False
+        for p, n in zip(parts, sizes):
+            sub = p.get(KEY_VALID, {})
+            ones = torch.ones((n,), dtype=torch.float32, device=template.device)
+            if k in p:
+                cols.append(p[k])
+                mcols.append(sub.get(k, ones))
+                any_missing = any_missing or k in sub
+            else:
+                cols.append(_fill(k, template, n))
+                mcols.append(torch.zeros_like(ones))
+                any_missing = True
+        out[k] = torch.cat(cols, dim=0)
+        if any_missing:
+            masks[k] = torch.cat(mcols, dim=0)
+    if masks:
+        out[KEY_VALID] = masks
+    return out
+
+
+def key_validity(targs: Dict, *keys) -> Optional[torch.Tensor]:
+    """(B,) float32 AND of the validity masks of ``keys``; None when the
+    batch carries no mask for any of them (the caller then skips masking)."""
+    kv = targs.get(KEY_VALID)
+    if not kv:
+        return None
+    out = None
+    for k in keys:
+        m = kv.get(str(k))
+        if m is not None:
+            out = m if out is None else out * m
+    return out
+
+
+def masked_sample_mean(per_sample: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean of per-sample scalars over valid samples (the plain mean when
+    mask is None); an all-invalid batch gives 0, not NaN."""
+    if mask is None:
+        return torch.mean(per_sample)
+    return torch.sum(per_sample * mask) / torch.clamp_min(torch.sum(mask), 1e-8)

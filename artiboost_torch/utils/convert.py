@@ -1,11 +1,17 @@
-"""Flax variables -> torch state dict for HybridBaseline: the inverse of
-``artiboost_tpu/utils/torch_convert.py``. Convs HWIO -> OIHW, the
+"""Flax variables <-> torch state dict for HybridBaseline.
+
+``hybrid_baseline_from_flax`` is the inverse of
+``artiboost_tpu/utils/torch_convert.py``: convs HWIO -> OIHW, the
 ConvTranspose spatial flip undone (flax runs the transposed conv as an
 unflipped correlation), dense kernels transposed, BatchNorm scale/bias
-plus batch_stats mean/var."""
+plus batch_stats mean/var. ``hybrid_baseline_to_flax`` maps torch names
+and layouts back, for any subset of the state dict (parameters,
+gradients, running statistics), so tests can hold the port's updated
+weights, gradients and statistics against the flax trees."""
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -77,3 +83,82 @@ def hybrid_baseline_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             np.ascontiguousarray(np.asarray(d["kernel"]).T))
         sd[f"box_head.layers.{2 * i}.bias"] = torch.from_numpy(np.asarray(d["bias"]).copy())
     return sd
+
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def _flax_leaf(name: str, shape: Tuple[int, ...], names) -> Tuple[str, Tuple[str, ...], str]:
+    """torch name -> (collection, flax path, layout) with layout one of
+    "conv", "deconv", "dense", "vector"; None for num_batches_tracked."""
+    *scope, leaf = name.split(".")
+    if leaf == "num_batches_tracked":
+        return None
+    m = re.fullmatch(r"backbone\.(conv1|bn1)", ".".join(scope))
+    if m:
+        return _module_leaf(("backbone", m.group(1)), leaf, len(shape))
+    m = re.fullmatch(r"backbone\.layer(\d+)\.(\d+)\.(conv|bn)(\d)", ".".join(scope))
+    if m:
+        li, bi, kind, k = m.groups()
+        mod = f"{'Conv' if kind == 'conv' else 'BatchNorm'}_{int(k) - 1}"
+        return _module_leaf(("backbone", f"layer{li}_{bi}", mod), leaf, len(shape))
+    m = re.fullmatch(r"backbone\.layer(\d+)\.(\d+)\.downsample\.(\d)", ".".join(scope))
+    if m:
+        li, bi, k = m.groups()
+        n_main = 3 if f"backbone.layer{li}.{bi}.conv3.weight" in names else 2
+        mod = f"{'Conv' if k == '0' else 'BatchNorm'}_{n_main}"
+        return _module_leaf(("backbone", f"layer{li}_{bi}", mod), leaf, len(shape))
+    m = re.fullmatch(r"hybrid_head\.deconv_layers\.(\d+)", ".".join(scope))
+    if m:
+        i, r = divmod(int(m.group(1)), 3)
+        if r == 0:
+            coll, fl = ("params", "kernel") if leaf == "weight" else ("params", "bias")
+            return coll, ("hybrid_head", f"ConvTranspose_{i}", fl), \
+                "deconv" if leaf == "weight" else "vector"
+        return _module_leaf(("hybrid_head", f"BatchNorm_{i}"), leaf, len(shape))
+    if ".".join(scope) == "hybrid_head.final_layer":
+        return _module_leaf(("hybrid_head", "Conv_0"), leaf, len(shape))
+    m = re.fullmatch(r"box_head\.layers\.(\d+)", ".".join(scope))
+    if m:
+        d = int(m.group(1)) // 2
+        return ("params", ("box_head", f"Dense_{d}", "kernel" if leaf == "weight" else "bias"),
+                "dense" if leaf == "weight" else "vector")
+    raise KeyError(f"no flax counterpart for {name}")
+
+
+def _module_leaf(path: Tuple[str, ...], leaf: str, ndim: int):
+    if path[-1].startswith(("bn", "BatchNorm")):
+        coll, fl = _BN_LEAVES[leaf]
+        return coll, path + (fl,), "vector"
+    if leaf == "weight":
+        return "params", path + ("kernel",), "conv" if ndim == 4 else "dense"
+    return "params", path + ("bias",), "vector"
+
+
+def _to_flax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
+    a = t.detach().float().cpu().numpy()
+    if layout == "conv":  # OIHW -> HWIO
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
+    if layout == "deconv":  # (in, out, kH, kW) -> flipped HWIO
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 0, 1))[::-1, ::-1])
+    if layout == "dense":
+        return np.ascontiguousarray(a.T)
+    return a
+
+
+def hybrid_baseline_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """{torch name: tensor} (a HybridBaseline state dict, its gradients or
+    any subset) -> {"params": tree, "batch_stats": tree} of numpy arrays in
+    flax names and layouts; collections with no entry are left out."""
+    out: Dict[str, Dict] = {}
+    for name, t in tensors.items():
+        leaf = _flax_leaf(name, tuple(t.shape), tensors)
+        if leaf is None:
+            continue
+        coll, path, layout = leaf
+        node = out.setdefault(coll, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _to_flax_layout(t, layout)
+    return out

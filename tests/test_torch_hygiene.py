@@ -56,7 +56,10 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch):
     from artiboost_torch import train
     from artiboost_torch.artiboost.loader import ArtiBoostLoader
     from artiboost_torch.artiboost.synth_batch import SynthBatch, SynthConfig
+    from artiboost_torch.criterions import build_criterion
+    from artiboost_torch.datasets.synthetic import SyntheticHO, build_dataset
     from artiboost_torch.metrics.evaluator import build_evaluator
+    from artiboost_torch.parallel.train_state import TrainStep
     from artiboost_torch.utils.config import load_config
     from artiboost_torch.utils.misc import resolve_device
 
@@ -72,4 +75,13 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch):
         SynthBatch(None, None, None, SynthConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_evaluator([])
+    cfg = load_config(str(cfg_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_dataset(cfg["DATASET"]["TRAIN"], cfg["DATA_PRESET"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticHO(cfg["DATA_PRESET"], N_SAMPLES=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_criterion(cfg).draws(torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainStep(torch.nn.Linear(2, 2), build_criterion(cfg), cfg["TRAIN"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,15 +1,17 @@
-"""The port's uv raster (``artiboost_torch/ops/rasterizer_cuda.py``)
-against the JAX package's ``rasterize_batch_pallas(uv_mode=True)`` run
-in Pallas interpret mode on the CPU.
+"""The port's raster twins (``artiboost_torch/ops/rasterizer_cuda.py``)
+against the JAX package's ``rasterize_batch_pallas`` run in Pallas
+interpret mode on the CPU: the uv twin against ``uv_mode=True``, the
+Gouraud (rgb) twin against ``uv_mode=False``.
 
-Tolerance: bit equality on quv, shade, page, win and depth, and on the
-pre-kernel screen faces, packed planes and range table. XLA's CPU
+Tolerance: bit equality on quv, shade, page, win and depth, on rgb and
+depth, and on the pre-kernel screen faces, packed planes and range
+table. XLA's CPU
 backend contracts a*b+c into one FMA where the target has one, while
 the TPU contract (and the CUDA kernel, ``__fmul_rn``/``__fadd_rn``)
 rounds the product and the sum separately; the JAX side therefore runs
 in a subprocess with ``--xla_cpu_max_isa=AVX`` (no FMA instructions), the
-separately rounded arithmetic of the contract. The kernel itself runs
-only on a card: ``chip_smoke.py`` holds it bit-exact against the twin
+separately rounded arithmetic of the contract. The kernels themselves run
+only on a card: ``chip_smoke.py`` holds them bit-exact against the twins
 on the same scenes (``artiboost_torch/ops/raster_scenes.py``)."""
 import os
 import subprocess
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from artiboost_torch.ops.raster_scenes import raster_check_scenes
+from artiboost_torch.ops.raster_scenes import raster_check_scenes, rgb_attrs
 from artiboost_torch.ops.rasterizer import build_screen_faces
 from artiboost_torch.ops.rasterizer_cuda import (
     LANE,
@@ -27,6 +29,7 @@ from artiboost_torch.ops.rasterizer_cuda import (
     _sort_faces,
     chunk_ranges,
     pack_faces,
+    rasterize_batch_rgb,
     rasterize_batch_uv,
 )
 
@@ -37,7 +40,7 @@ def _cases():
     cases = {}
     for name, sc in raster_check_scenes().items():
         for cull in (False, True):
-            cases[f"{name}_cull{int(cull)}"] = dict(sc, cull=cull)
+            cases[f"{name}_cull{int(cull)}"] = dict(sc, cull=cull, rgb=rgb_attrs(sc))
     return cases
 
 
@@ -70,6 +73,13 @@ def _jax_reference(cases, path_out):
         out[f"{name}/geom"], out[f"{name}/col"] = np.asarray(geom), np.asarray(col)
         out[f"{name}/sorted_bbox"] = np.asarray(sfs.bbox)
         out[f"{name}/sorted_valid"] = np.asarray(sfs.valid)
+        rgb = jnp.asarray(c["rgb"])
+        out[f"{name}/rgb"], out[f"{name}/rgb_depth"] = (np.asarray(r) for r in rasterize_batch_pallas(
+            v, rgb, f, fv, c["H"], c["W"], tile_px=TILE_PX, cull_backfaces=c["cull"]))
+        sf3 = jax.vmap(lambda vv, aa, mm: jbsf(vv, aa, f, mm, cull_backfaces=c["cull"]))(v, rgb, fv)
+        sf3 = jax.tree_util.tree_map(lambda t: jnp.take_along_axis(
+            t, order.reshape(order.shape + (1,) * (t.ndim - 2)), axis=1), sf3)
+        out[f"{name}/col_rgb"] = np.asarray(jax.vmap(lambda s: _pack_faces(s, nc, n_attr=3))(sf3)[1])
     np.savez(path_out, **out)
 
 
@@ -145,6 +155,56 @@ def test_screen_faces_packing_and_ranges(jax_ref, name):
         start = (np.maximum.accumulate(ymax, axis=1) < lo).sum(-1)
         np.testing.assert_array_equal(ranges[:, t, 1], end)
         np.testing.assert_array_equal(ranges[:, t, 0], np.minimum(start, end))
+
+
+def _port_rgb(c):
+    return rasterize_batch_rgb(torch.from_numpy(c["verts"]), torch.from_numpy(c["rgb"]),
+                               torch.from_numpy(c["faces"]), torch.from_numpy(c["valid"]),
+                               c["H"], c["W"], cull_backfaces=c["cull"])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_rgb_raster_bit_equal(jax_ref, name):
+    """The Gouraud twin: rgb in {k / 255} and depth bit-equal to
+    ``rasterize_batch_pallas(uv_mode=False)``, and the 3-attribute packing
+    bit-equal to ``_pack_faces(n_attr=3)``."""
+    c = CASES[name]
+    rgb, depth = _port_rgb(c)
+    np.testing.assert_array_equal(rgb.numpy(), jax_ref[f"{name}/rgb"], err_msg=f"{name}/rgb")
+    np.testing.assert_array_equal(depth.numpy(), jax_ref[f"{name}/rgb_depth"])
+    np.testing.assert_array_equal(depth.numpy(), jax_ref[f"{name}/depth"])  # one pass 1
+    hit = depth.numpy() > 0
+    if name != "tie_cull1":
+        assert hit.any() and (rgb.numpy()[hit] > 0).any()
+    assert (rgb.numpy()[~hit] == 0).all()
+    levels = rgb.numpy() * 255.0
+    np.testing.assert_allclose(levels, np.round(levels), atol=1e-4)
+    sf = build_screen_faces(torch.from_numpy(c["verts"]), torch.from_numpy(c["rgb"]),
+                            torch.from_numpy(c["faces"]), torch.from_numpy(c["valid"]),
+                            cull_backfaces=c["cull"])
+    sfs, _ = _sort_faces(sf)
+    _, col = pack_faces(sfs, (c["faces"].shape[0] + LANE - 1) // LANE)
+    np.testing.assert_array_equal(col.numpy(), jax_ref[f"{name}/col_rgb"])
+
+
+@pytest.mark.parametrize("name", ["small_cull0", "multi_cull0"])
+def test_rgb_twin_matches_xla_raster(name):
+    """The Gouraud twin against the JAX package's plain XLA raster
+    (``rasterize_batch``, interpolated colours without quantisation) at
+    the tolerances of tests/test_rasterizer_pallas.py: depth within 1e-3
+    and every colour channel within 1e-2 on more than 99.5 % of pixels."""
+    import jax.numpy as jnp
+
+    from artiboost_tpu.ops.rasterizer import rasterize_batch
+
+    c = CASES[name]
+    a_ref, d_ref = rasterize_batch(*(jnp.asarray(c[k]) for k in ("verts", "rgb", "faces")),
+                                   jnp.asarray(c["valid"]), c["H"], c["W"],
+                                   face_chunk=16, row_chunk=8)
+    rgb, depth = (t.numpy() for t in _port_rgb(c))
+    assert np.isclose(depth, np.asarray(d_ref), atol=1e-3).mean() > 0.995
+    close = np.all(np.isclose(rgb, np.clip(np.asarray(a_ref), 0.0, 1.0), atol=1e-2), axis=-1)
+    assert close.mean() > 0.995
 
 
 def test_raster_under_xla_fma_contraction():

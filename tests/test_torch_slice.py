@@ -1,8 +1,9 @@
 """Slice 1 end to end: two epochs of the synthesis-and-mining loop of the
-port (``artiboost_torch.train.run``: startup prepare, then per epoch
-prepare, prepare_val, the val pass with the HybridBaseline forward and
-ValMetricMean3DEPE2, step_eval with method_1) against the same loop
-driven through the JAX package's ArtiBoostLoader, at
+port (the val half of ``artiboost_torch.train.run``'s epoch: startup
+prepare, then per epoch prepare, prepare_val, ``train.val_epoch`` with the
+HybridBaseline forward and ValMetricMean3DEPE2, step_eval with method_1;
+the train half is held in tests/test_torch_train_slice.py) against the
+same loop driven through the JAX package's ArtiBoostLoader, at
 config/synthetic_smoke.yaml size (CCV 4 x 48 x 16, batch 16, VAL_LEN 32,
 128 x 128 crop, ResNet18), on the CPU.
 
@@ -154,6 +155,8 @@ class ReplayDraws:
     def __init__(self, ref):
         self.ref = ref
         self.count = {"triplets": 0, "poses": 0, "synth": 0}
+        # the val losses' draws: the ordinal losses do not feed the EPE maps
+        self.generator = torch.Generator().manual_seed(0)
 
     def _next(self, kind):
         i = self.count[kind]
@@ -176,6 +179,9 @@ class ReplayDraws:
 
     def synth(self, synth_fn, B):
         return self._tree(f"synth/{self._next('synth')}/")
+
+    def loss(self, criterion):
+        return criterion.draws(self.generator, "cpu")
 
 
 def _unflatten(ref, prefix):
@@ -204,7 +210,12 @@ def jax_ref(tmp_path_factory):
 
 
 def test_val_and_mining_epochs(jax_ref):
-    from artiboost_torch.train import run
+    from artiboost_torch.artiboost.loader import ArtiBoostLoader
+    from artiboost_torch.criterions import build_criterion
+    from artiboost_torch.metrics.evaluator import build_evaluator
+    from artiboost_torch.metrics.val_metric import ValMetricMean3DEPE2
+    from artiboost_torch.models.arch import build_arch
+    from artiboost_torch.train import StageTimer, val_epoch
     from artiboost_torch.train import slice_config as loader_cfg
     from artiboost_torch.utils.config import load_config
     from artiboost_torch.utils.convert import hybrid_baseline_from_flax
@@ -213,12 +224,26 @@ def test_val_and_mining_epochs(jax_ref):
     cfg = load_config(CFG_PATH)
     cfg["MANAGER"]["CACHE_DIR"] = str(d / "torch_cache")
     replay = ReplayDraws(ref)
-    state = hybrid_baseline_from_flax(_unflatten(ref, "model/"))
-    out = run(cfg, epochs=2, device="cpu", model_state=state, draws=replay)
+    loader = ArtiBoostLoader(cfg=loader_cfg(cfg), batch_size=16, n_epochs=2,
+                             seed=int(cfg["TRAIN"]["MANUAL_SEED"]), device="cpu", draws=replay)
+    arch = build_arch(cfg["ARCH"], cfg["DATA_PRESET"])
+    arch.model_list[0].load_state_dict(hybrid_baseline_from_flax(_unflatten(ref, "model/")))
+    criterion = build_criterion(cfg)
+    evaluator = build_evaluator(cfg["EVALUATOR"], device="cpu")
+    timer = StageTimer(torch.device("cpu"))
+    loader.prepare()  # startup prepare (the reference runs it twice)
+    n_val_batches = 0
+    for epoch in range(2):
+        loader.prepare()
+        assert loader.should_val(epoch)
+        loader.prepare_val()
+        n_val_batches += val_epoch(loader, arch, criterion, evaluator, timer)["batches"]
+        loader.step_eval(epoch, evaluator)
     assert replay.count == {"triplets": 5, "poses": 5, "synth": 4}
-    assert out["n_val_batches"] == 4
-    ccv = out["loader"].ccv
-    avg, seen = out["evaluator"].metrics_list[0].get_averaged_maps()
+    assert n_val_batches == 4
+    ccv = loader.ccv
+    vm = next(m for m in evaluator.metrics_list if isinstance(m, ValMetricMean3DEPE2))
+    avg, seen = vm.get_averaged_maps()
     np.testing.assert_array_equal(seen.numpy(), ref["seen"])
     assert int(seen.sum()) == 32
     np.testing.assert_array_equal(ccv.occurrence_map.numpy(), ref["occurrence"])
@@ -227,7 +252,6 @@ def test_val_and_mining_epochs(jax_ref):
     assert not np.all(ref["weights"] == 1.0)
 
     # the checkpoint state round-trips through a fresh loader
-    loader = out["loader"]
     state = loader.state_dict()
     fresh = type(loader)(cfg=loader_cfg(cfg), batch_size=16, device="cpu")
     fresh.load_state_dict(state)

@@ -138,7 +138,8 @@ class ArtiBoostLoader:
         scrambler = Scrambler(cfg.get("SCRAMBLER", {"TYPE": "random",
                                                     "HAND_TSL_SIGMA": 0.01,
                                                     "HAND_POSE_SIGMA": 0.1}))
-        refiner = build_refiner(cfg.get("REFINER", {"TYPE": "null"}), self.mano_model)
+        refiner = build_refiner(cfg.get("REFINER", {"TYPE": "null"}), self.mano_model,
+                                device=self.device)
         self.pose_generator = PoseGenerator(self.mano_model, self.obj_lib, self.grasp_lib,
                                             self.view_cfg, scrambler, refiner)
 

@@ -1,14 +1,98 @@
-"""Grasp refiners (counterpart of ``artiboost_tpu/artiboost/refiner.py``).
-Ported: the ``null`` refiner (FK only, reference NullRefine :118-147).
-The ``hand_obj`` refiner with its chamfer term is queued."""
+"""Grasp refiners (counterpart of ``artiboost_tpu/artiboost/refiner.py``;
+reference ``anakin/artiboost/refiner.py``): ``null`` (FK only, NullRefine
+:118-147) and ``hand_obj``, the iterative RefineNet (:150-285): hand ->
+object point distances (``ops/chamfer.py``), a ResBlock MLP predicting a
+delta pose (16 x ortho-6D) and a delta translation, contact re-evaluated
+at each of ITERS iterations.
+
+RefineNet is the JAX package's re-design (LayerNorm ResBlocks, zero-init
+delta heads); GrabNet's ``refinenet.pt`` does not load into it, so the
+weights come from the flax params in ``assets/refinenet_tpu.npz``
+(``utils/convert.py`` ``refinenet_from_flax``)."""
 from __future__ import annotations
 
-from typing import Callable, Dict
+import os
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
+from torch import nn
+from torch.nn import functional as F
 
-from artiboost_torch.mano.layer import mano_forward
+from artiboost_torch.mano.layer import mano_forward, mano_forward_rotmat
 from artiboost_torch.mano.model import ManoModel
+from artiboost_torch.ops.chamfer import chamfer_distance
+from artiboost_torch.utils.misc import asset_path, logger
+from artiboost_torch.utils.transform import aa_to_rotmat, rot6d_to_rotmat, rotmat_to_aa
+
+N_VERTS, POSE_6D, H_SIZE = 778, 16 * 6, 512
+FALLBACK_WEIGHTS = "assets/refinenet_tpu.npz"
+
+
+class ResBlock(nn.Module):
+    """flax ``ResBlock``: a projection (``Dense_0``, present when fin !=
+    fout) and the branch Dense -> LayerNorm -> leaky-ReLU -> Dense ->
+    LayerNorm, joined by a leaky-ReLU (slope 0.2). LayerNorm's epsilon is
+    flax's 1e-6."""
+
+    def __init__(self, fin: int, fout: int, n_neurons: int = 256):
+        super().__init__()
+        self.proj = nn.Linear(fin, fout) if fin != fout else None
+        self.fc1 = nn.Linear(fin, n_neurons)
+        self.ln1 = nn.LayerNorm(n_neurons, eps=1e-6)
+        self.fc2 = nn.Linear(n_neurons, fout)
+        self.ln2 = nn.LayerNorm(fout, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xin = x if self.proj is None else F.leaky_relu(self.proj(x), 0.2)
+        h = F.leaky_relu(self.ln1(self.fc1(x)), 0.2)
+        h = self.ln2(self.fc2(h))
+        return F.leaky_relu(xin + h, 0.2)
+
+
+class RefineNet(nn.Module):
+    """One refinement step: (h2o_dist (B, 778), pose_6d (B, 96), trans
+    (B, 3)) -> (dpose (B, 96), dtrans (B, 3)). The delta heads start at
+    zero, so an untrained net is the identity refiner."""
+
+    def __init__(self, h_size: int = H_SIZE):
+        super().__init__()
+        fin = N_VERTS + POSE_6D + 3
+        self.ln0 = nn.LayerNorm(N_VERTS, eps=1e-6)
+        self.blocks = nn.ModuleList([ResBlock(fin, h_size), ResBlock(h_size + fin, h_size),
+                                     ResBlock(h_size + fin, h_size)])
+        self.dpose = nn.Linear(h_size, POSE_6D)
+        self.dtrans = nn.Linear(h_size, 3)
+        for head in (self.dpose, self.dtrans):
+            nn.init.zeros_(head.weight)
+            nn.init.zeros_(head.bias)
+
+    def forward(self, h2o_dist: torch.Tensor, pose_6d: torch.Tensor, trans: torch.Tensor):
+        x0 = torch.cat([self.ln0(h2o_dist), pose_6d, trans], dim=1)
+        x = self.blocks[0](x0)
+        for block in self.blocks[1:]:
+            x = block(torch.cat([x, x0], dim=1))
+        return self.dpose(x), self.dtrans(x)
+
+
+def pose_aa_to_6d(pose_aa: torch.Tensor) -> torch.Tensor:
+    """(B, 48) -> (B, 96): per joint the first two rotation-matrix columns."""
+    B = pose_aa.shape[0]
+    rot = aa_to_rotmat(pose_aa.reshape(B, 16, 3))
+    return torch.cat([rot[..., :, 0], rot[..., :, 1]], dim=-1).reshape(B, POSE_6D)
+
+
+def pose_6d_to_aa(pose_6d: torch.Tensor) -> torch.Tensor:
+    B = pose_6d.shape[0]
+    return rotmat_to_aa(rot6d_to_rotmat(pose_6d.reshape(B, 16, 6))).reshape(B, 48)
+
+
+def _shape_of(feed: Dict) -> torch.Tensor:
+    pose = feed["hand_pose"]
+    shape = feed.get("hand_shape")
+    if shape is None:
+        shape = torch.zeros((pose.shape[0], 10), dtype=pose.dtype, device=pose.device)
+    return shape
 
 
 def make_null_refiner(mano_model: ManoModel) -> Callable:
@@ -16,10 +100,7 @@ def make_null_refiner(mano_model: ManoModel) -> Callable:
 
     def refine(feed: Dict, obj_verts=None, obj_valid=None) -> Dict:
         pose = feed["hand_pose"]
-        shape = feed.get("hand_shape")
-        if shape is None:
-            shape = torch.zeros((pose.shape[0], 10), dtype=pose.dtype, device=pose.device)
-        out = mano_forward(mano_model, pose, shape)
+        out = mano_forward(mano_model, pose, _shape_of(feed))
         tsl = feed["hand_tsl"]
         return {"hand_verts": out.verts + tsl[:, None], "joints": out.joints + tsl[:, None],
                 "hand_pose": pose, "hand_tsl": tsl}
@@ -27,9 +108,73 @@ def make_null_refiner(mano_model: ManoModel) -> Callable:
     return refine
 
 
-def build_refiner(cfg: Dict, mano_model: ManoModel) -> Callable:
+def make_ho_refiner(mano_model: ManoModel, net: RefineNet, n_iters: int = 3) -> Callable:
+    """fn(feed, obj_verts (B, M, 3), obj_valid (B, M)) -> refined dict.
+    feed: hand_pose (B, 48), hand_tsl (B, 3), hand_shape (B, 10) optional.
+    The object points are already rotated into the hand's frame (reference
+    HORefiner :225). Each iteration: FK from the 6D pose, the distance
+    sqrt(max(d, 1e-12)) of each hand vertex to its nearest valid object
+    point, then pose_6d += dpose and trans += dtrans; FK from the final
+    axis-angle pose at the end."""
+
+    @torch.no_grad()
+    def refine(feed: Dict, obj_verts: torch.Tensor,
+               obj_valid: Optional[torch.Tensor] = None) -> Dict:
+        B = feed["hand_pose"].shape[0]
+        shape = _shape_of(feed)
+        pose_6d, trans = pose_aa_to_6d(feed["hand_pose"]), feed["hand_tsl"]
+        for _ in range(n_iters):
+            rots = rot6d_to_rotmat(pose_6d.reshape(B, 16, 6))
+            verts = mano_forward_rotmat(mano_model, rots, shape).verts + trans[:, None]
+            d_xy, _ = chamfer_distance(verts, obj_verts, mask_y=obj_valid)
+            dpose, dtrans = net(torch.sqrt(torch.clamp_min(d_xy, 1e-12)), pose_6d, trans)
+            pose_6d, trans = pose_6d + dpose, trans + dtrans
+        aa = pose_6d_to_aa(pose_6d)
+        out = mano_forward(mano_model, aa, shape)
+        return {"hand_verts": out.verts + trans[:, None], "joints": out.joints + trans[:, None],
+                "hand_pose": aa, "hand_tsl": trans}
+
+    return refine
+
+
+def load_refiner_params(path: str) -> Dict:
+    """A flat npz of flax params (``save_refiner_params``: keys joined by
+    '/') -> the nested dict of numpy arrays."""
+    nested: Dict = {}
+    with np.load(path) as blob:
+        for key in blob.files:
+            node = nested
+            *scope, leaf = key.split("/")
+            for s in scope:
+                node = node.setdefault(s, {})
+            node[leaf] = blob[key]
+    return nested
+
+
+def build_refiner(cfg: Dict, mano_model: ManoModel, device=None) -> Callable:
+    """cfg: {"TYPE": "null" | "hand_obj", "ITERS": 3, "PRETRAINED": path}.
+    The weights, in the JAX package's order: the configured ``.npz``; else
+    ``assets/refinenet_tpu.npz`` when the configured file is absent or
+    none is configured; else the identity refiner, with a warning."""
+    from artiboost_torch.utils.convert import refinenet_from_flax
+
     kind = cfg.get("TYPE", "null")
     if kind in (None, "null"):
         return make_null_refiner(mano_model)
-    raise NotImplementedError(f"refiner {kind!r} is not ported yet; set "
-                              "MANAGER.REFINER.TYPE to null")
+    if kind != "hand_obj":
+        raise ValueError(f"unknown refiner {kind!r}")
+    net = RefineNet()
+    pretrained = cfg.get("PRETRAINED")
+    fallback = asset_path(FALLBACK_WEIGHTS)
+    if os.path.isfile(fallback) and (not pretrained or not os.path.isfile(str(pretrained))):
+        logger.info(f"refiner: {pretrained or 'no PRETRAINED'} absent; using {fallback}")
+        pretrained = fallback
+    if pretrained and str(pretrained).endswith(".npz") and os.path.isfile(pretrained):
+        loaded = load_refiner_params(pretrained)
+        net.load_state_dict(refinenet_from_flax(loaded.get("params", loaded)))
+        logger.info(f"refiner: loaded {pretrained}")
+    else:
+        logger.warning(f"refiner: {pretrained or 'no PRETRAINED'} is not a loadable .npz of "
+                       "flax params; starting from the identity refiner")
+    net = net.to(mano_model.v_template.device if device is None else device).eval()
+    return make_ho_refiner(mano_model, net, n_iters=int(cfg.get("ITERS", 3)))

@@ -8,7 +8,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from artiboost_torch.mano.model import JOINT_REORDER, NUM_JOINTS, TIP_VERT_IDS, ManoModel
-from artiboost_torch.utils.transform import aa_to_rotmat
+from artiboost_torch.utils.transform import aa_to_rotmat, rotmat_to_aa
 
 _LEV1 = [1, 4, 7, 10, 13]
 _LEV2 = [2, 5, 8, 11, 14]
@@ -36,8 +36,22 @@ def _shaped(model: ManoModel, betas: torch.Tensor) -> torch.Tensor:
 def mano_forward(model: ManoModel, full_pose: torch.Tensor, betas: torch.Tensor,
                  center_idx: Optional[int] = None) -> ManoOutput:
     """(B, 48) axis-angle pose + (B, 10) shape -> verts, 21 joints, transforms."""
-    B = full_pose.shape[0]
-    rots = aa_to_rotmat(full_pose.reshape(B, 16, 3))
+    rots = aa_to_rotmat(full_pose.reshape(full_pose.shape[0], 16, 3))
+    return _mano_forward_impl(model, rots, full_pose, betas, center_idx)
+
+
+def mano_forward_rotmat(model: ManoModel, rots: torch.Tensor, betas: torch.Tensor,
+                        center_idx: Optional[int] = None) -> ManoOutput:
+    """FK straight from (B, 16, 3, 3) joint rotations, for loops over a 6D
+    or rotmat pose: ``rotmat_to_aa``'s backward is singular at angle 0 and
+    pi. ``full_poses`` is reported as axis-angle, detached."""
+    aa = rotmat_to_aa(rots).reshape(rots.shape[0], 48).detach()
+    return _mano_forward_impl(model, rots, aa, betas, center_idx)
+
+
+def _mano_forward_impl(model: ManoModel, rots: torch.Tensor, full_pose: torch.Tensor,
+                       betas: torch.Tensor, center_idx: Optional[int]) -> ManoOutput:
+    B = rots.shape[0]
     eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
     pose_feature = (rots[:, 1:] - eye).reshape(B, 135)
 

@@ -7,7 +7,8 @@ unflipped correlation), dense kernels transposed, BatchNorm scale/bias
 plus batch_stats mean/var. ``hybrid_baseline_to_flax`` maps torch names
 and layouts back, for any subset of the state dict (parameters,
 gradients, running statistics), so tests can hold the port's updated
-weights, gradients and statistics against the flax trees."""
+weights, gradients and statistics against the flax trees.
+``refinenet_from_flax`` loads the grasp refiner's flax params."""
 from __future__ import annotations
 
 import re
@@ -82,6 +83,40 @@ def hybrid_baseline_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         sd[f"box_head.layers.{2 * i}.weight"] = torch.from_numpy(
             np.ascontiguousarray(np.asarray(d["kernel"]).T))
         sd[f"box_head.layers.{2 * i}.bias"] = torch.from_numpy(np.asarray(d["bias"]).copy())
+    return sd
+
+
+def _dense(sd: Dict, prefix: str, p: Dict):
+    """flax Dense kernel (in, out) -> nn.Linear weight (out, in)."""
+    sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(p["kernel"]).T))
+    sd[prefix + ".bias"] = torch.from_numpy(np.asarray(p["bias"]).copy())
+
+
+def _layer_norm(sd: Dict, prefix: str, p: Dict):
+    sd[prefix + ".weight"] = torch.from_numpy(np.asarray(p["scale"]).copy())
+    sd[prefix + ".bias"] = torch.from_numpy(np.asarray(p["bias"]).copy())
+
+
+def refinenet_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """RefineNet flax params (numpy leaves, below "params") -> state dict
+    of ``artiboost_torch.artiboost.refiner.RefineNet``. In ``ResBlock_k``
+    the projection is ``Dense_0`` when it exists (fin != fout); the branch
+    is the next two Dense layers with ``LayerNorm_0`` and ``LayerNorm_1``.
+    At the top, ``LayerNorm_0`` normalises the distances, ``Dense_0`` is
+    the dpose head and ``Dense_1`` the dtrans head."""
+    sd: Dict[str, torch.Tensor] = {}
+    _layer_norm(sd, "ln0", params["LayerNorm_0"])
+    _dense(sd, "dpose", params["Dense_0"])
+    _dense(sd, "dtrans", params["Dense_1"])
+    for k in range(sum(1 for name in params if name.startswith("ResBlock_"))):
+        blk, pre = params[f"ResBlock_{k}"], f"blocks.{k}."
+        n_dense = sum(1 for name in blk if name.startswith("Dense_"))
+        if n_dense == 3:
+            _dense(sd, pre + "proj", blk["Dense_0"])
+        _dense(sd, pre + "fc1", blk[f"Dense_{n_dense - 2}"])
+        _dense(sd, pre + "fc2", blk[f"Dense_{n_dense - 1}"])
+        _layer_norm(sd, pre + "ln1", blk["LayerNorm_0"])
+        _layer_norm(sd, pre + "ln2", blk["LayerNorm_1"])
     return sd
 
 

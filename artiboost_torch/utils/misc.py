@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 from typing import Optional, Union
 
 import numpy as np
@@ -46,6 +47,17 @@ def resolve_dtype(dtype) -> torch.dtype:
                 "float32": torch.float32, "fp32": torch.float32,
                 "float16": torch.float16, "fp16": torch.float16}[dtype.lower()]
     return dtype
+
+
+def asset_path(rel: str) -> str:
+    """A repo-relative asset path (e.g. ``assets/refinenet_tpu.npz``): as
+    given when it exists from the working directory, else under the
+    repository root, else as given."""
+    if os.path.exists(rel):
+        return rel
+    cand = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), rel)
+    return cand if os.path.exists(cand) else rel
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -14,8 +14,9 @@ Phases, each fatal on failure:
      an object of up to 1024 faces); kernel and plain times at those shapes;
   4. the val-and-mining slice at full width (config
      ho3dv2_clasbased_artiboost.yaml: ResNet34 in bfloat16, 224x224, batch
-     128, CCV 4 x 288 x 50, method_1; REFINER null, VAL_LEN 8 x 128) for 2
-     epochs without the train pass;
+     128, CCV 4 x 288 x 50, method_1, the hand_obj refiner with ITERS 3
+     from assets/refinenet_tpu.npz; VAL_LEN 8 x 128) for 2 epochs without
+     the train pass;
   5. the train pass at full width through ``artiboost_torch.train.run``:
      the same config with DATASET.TRAIN = SyntheticHO (RAW_SIZE 512,
      N_SAMPLES 640, so 80 real + 48 synth per batch and 8 steps per
@@ -122,7 +123,6 @@ def full_width_config():
     from artiboost_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
-    cfg["MANAGER"]["REFINER"] = {"TYPE": "null"}
     cfg["TRAIN"]["EVAL_FREQ"] = 1
     cfg["TRAIN"]["VAL_START_EPOCH"] = 0
     return cfg

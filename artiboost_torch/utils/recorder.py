@@ -185,14 +185,16 @@ class Recorder:
         optimizer and schedule and restore torch's RNG states -> the
         number of completed epochs."""
         path = os.path.abspath(path or os.path.join(self.ckpt_dir, "latest.pt"))
-        device = next(step.model.parameters()).device
-        payload = torch.load(path, map_location=device, weights_only=True)
+        # loaded to the host: load_state_dict copies each tensor to its
+        # parameter's device, and Adam's step counts stay on the host as in
+        # an uninterrupted run
+        payload = torch.load(path, map_location="cpu", weights_only=True)
         step.model.load_state_dict(payload["model"])
         step.optimizer.load_state_dict(payload["optimizer"])
         step.step = int(payload["scheduler"]["step"])
-        torch.set_rng_state(payload["rng_cpu"].cpu())
+        torch.set_rng_state(payload["rng_cpu"])
         if "rng_cuda" in payload and torch.cuda.is_available():
-            torch.cuda.set_rng_state_all([s.cpu() for s in payload["rng_cuda"]])
+            torch.cuda.set_rng_state_all(payload["rng_cuda"])
         return int(payload["epoch"])
 
     def resume_artiboost_state(self) -> Optional[Dict]:

@@ -1,6 +1,7 @@
 """Triangle-raster geometry on torch tensors (counterpart of
 ``artiboost_tpu/ops/rasterizer.py``): projection, per-face edge/depth/
-attribute planes, and area-weighted vertex normals.
+attribute planes, area-weighted vertex normals, and the plain raster
+(``rasterize_batch``) that ``chip_parity`` holds the kernels against.
 
 Conventions: CV camera (x right, y down, z forward > 0); pixel centers
 at integer + 0.5; faces carry a validity mask; the inside test is
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 _EPS = 1e-9
+_BIG = 1e30
 
 
 class ScreenFace(NamedTuple):
@@ -82,6 +84,54 @@ def build_screen_faces(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
     bbox = torch.stack([x.amin(-1), y.amin(-1), x.amax(-1), y.amax(-1)], dim=-1)
     return ScreenFace(edge_a=ea, edge_b=eb, edge_c=ec, inv_z=inv_z,
                       attr_over_z=a * inv_z[..., None], valid=valid, bbox=bbox)
+
+
+def rasterize_batch(verts_screen: torch.Tensor, vert_attrs: torch.Tensor, faces: torch.Tensor,
+                    face_valid: Optional[torch.Tensor], height: int, width: int,
+                    face_chunk: int = 512, row_chunk: int = 16, cull_backfaces: bool = False):
+    """The plain raster the kernels are held against (JAX ``rasterize`` and
+    ``rasterize_batch``, :112-217): per pixel, the closest covering face by
+    interpolated 1/z, its attrs interpolated perspective-correct. Faces are
+    scanned in chunks of ``face_chunk`` (the last one clamped to end at F,
+    as ``dynamic_slice`` does); the first best face of a chunk wins within
+    it and a later chunk wins only on a strictly larger 1/z. Rows go
+    ``row_chunk`` at a time to bound memory.
+    -> (attrs (B, H, W, A), depth (B, H, W)); depth 0 = background."""
+    sf = build_screen_faces(verts_screen, vert_attrs, faces, face_valid, cull_backfaces)
+    B, F = sf.valid.shape
+    A, dev = vert_attrs.shape[-1], verts_screen.device
+    chunk = min(face_chunk, F)
+    starts = [min(s, F - chunk) for s in range(0, F, chunk)]
+    xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    attrs = torch.zeros((B, height, width, A), dtype=torch.float32, device=dev)
+    depth = torch.zeros((B, height, width), dtype=torch.float32, device=dev)
+    for y0 in range(0, height, row_chunk):
+        ys = torch.arange(y0, min(y0 + row_chunk, height), dtype=torch.float32, device=dev) + 0.5
+        py, px = (t.reshape(-1) for t in torch.meshgrid(ys, xs, indexing="ij"))
+        best_w = torch.full((B, px.numel()), -_BIG, device=dev)
+        best_attr = torch.zeros((B, px.numel(), A), device=dev)
+        for s in starts:
+            ea, eb, ec, izv, aoz, val = (a[:, s:s + chunk] for a in (
+                sf.edge_a, sf.edge_b, sf.edge_c, sf.inv_z, sf.attr_over_z, sf.valid))
+            lam = (px[None, :, None, None] * ea[:, None] + py[None, :, None, None] * eb[:, None]
+                   + ec[:, None])  # (B, P, C, 3)
+            inside = torch.all(lam >= -1e-6, dim=-1) & (val[:, None, :] > 0)
+            w = torch.where(inside, torch.einsum("bpck,bck->bpc", lam, izv), -_BIG)
+            best_c = torch.argmax(w, dim=2)  # the first of equal maxima
+            w_c = torch.gather(w, 2, best_c[..., None])[..., 0]
+            lam_c = torch.gather(lam, 2, best_c[..., None, None].expand(-1, -1, 1, 3))[:, :, 0]
+            aoz_c = torch.gather(aoz, 1, best_c[..., None, None].expand(-1, -1, 3, A))
+            attr_c = torch.einsum("bpk,bpka->bpa", lam_c, aoz_c)
+            take = w_c > best_w
+            best_attr = torch.where(take[..., None], attr_c, best_attr)
+            best_w = torch.maximum(best_w, w_c)
+        hit = best_w > 0
+        d = torch.where(hit, 1.0 / torch.clamp_min(best_w, _EPS), 0.0)
+        rows = slice(y0, y0 + ys.numel())
+        depth[:, rows] = d.reshape(B, -1, width)
+        attrs[:, rows] = torch.where(hit[..., None], best_attr * d[..., None],
+                                     0.0).reshape(B, -1, width, A)
+    return attrs, depth
 
 
 def vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:

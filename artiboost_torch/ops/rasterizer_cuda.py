@@ -5,8 +5,11 @@ in torch.
 Replaces ``artiboost_tpu/ops/rasterizer_pallas.py`` ``rasterize_batch_pallas``
 (:298), whose kernel body is ``_raster_kernel`` (:222) -> ``_tile_core``
 (:115), in both pass-2 modes: ``uv_mode=True`` (per-pixel texturing,
-``raster_uv``) and the Gouraud mode (``raster_rgb``). The contract is the
-TPU kernel's:
+``raster_uv``) and the Gouraud mode (``raster_rgb``); and its x-binned
+Gouraud route ``_rasterize_binned`` (:469) -> ``_raster_kernel_binned``
+(:272) (``raster_rgb_binned``, tiles of tile_rows x xbin_w pixels over
+per-band face lists, ``prepare_raster_binned``). The contract is the TPU
+kernel's:
 
   * faces are stably y-sorted (chunk membership decides tie-breaks),
     packed into 128-lane chunks of 16 plane rows with face validity
@@ -40,18 +43,26 @@ LANE = 128          # faces per chunk
 N_ROWS = 16         # plane rows per chunk
 _LANE_MASK = 0x7F   # low 7 mantissa bits of the depth key carry the lane id
 TILE_PX = 256       # pixels per tile (kTilePx in raster.cu)
+MAX_BINNED_TILE_PX = 2048  # binned tile: 256 threads x kMaxPixPerThread in raster.cu
 _TWIN_ELEMS = 1 << 24  # bound on the twin's (images, pixels, 128) temporaries
 
 
 class RasterInputs(NamedTuple):
-    """What a kernel reads, plus the sort permutation for the unsort."""
+    """What a kernel reads, plus the sort permutation for the unsort. The
+    binned raster's arrays carry a band axis after the batch axis, and
+    ``tile`` = (xbin_w, tile_rows); the 1-D raster's ``tile`` is ()."""
 
-    ranges: torch.Tensor  # (B, T, 2) int32 chunk range per pixel tile
-    geom: torch.Tensor    # (B, NC, 16, 128) f32 edge + 1/z planes
-    col: torch.Tensor     # (B, NC, 16, 128) f32 attribute/z planes
-    order: torch.Tensor   # (B, F) int64 sorted -> caller face id
+    ranges: torch.Tensor  # (B, T, 2) int32 chunk range per pixel tile; binned (B, NB, YT, 2)
+    geom: torch.Tensor    # (B, NC, 16, 128) f32 edge + 1/z planes; binned (B, NB, NC, 16, 128)
+    col: torch.Tensor     # (B, NC, 16, 128) f32 attribute/z planes; binned as geom
+    order: torch.Tensor   # (B, F) int64 sorted -> caller face id; binned (B, NB, F)
     height: int
     width: int
+    tile: Tuple[int, ...] = ()
+
+    def args(self) -> tuple:
+        """The kernel wrapper's arguments."""
+        return (self.ranges, self.geom, self.col, self.height, self.width) + tuple(self.tile)
 
 
 def _sort_faces(sf: ScreenFace) -> Tuple[ScreenFace, torch.Tensor]:
@@ -100,9 +111,21 @@ def pack_faces(sf: ScreenFace, n_chunks: int) -> Tuple[torch.Tensor, torch.Tenso
 
 def chunk_ranges(sf: ScreenFace, n_chunks: int, n_tiles: int, width: int) -> torch.Tensor:
     """(B, T, 2) int32 [start, end) of the sorted chunks whose y-extent can
-    touch each tile: chunks are ymin-sorted, so the first chunk with
-    ymin > tile_ymax ends the scan, and the prefix whose running-max
-    ymax < tile_ymin lies strictly above the tile."""
+    touch each TILE_PX-pixel tile (:383-384: tile_ymax is the last row's
+    index plus 1)."""
+    tile = torch.arange(n_tiles, device=sf.valid.device)
+    tile_ymin = torch.div(tile * TILE_PX, width, rounding_mode="floor").float()
+    tile_ymax = torch.div((tile + 1) * TILE_PX - 1, width, rounding_mode="floor").float() + 1.0
+    return _ranges_for_rows(sf, n_chunks, tile_ymin, tile_ymax)
+
+
+def _ranges_for_rows(sf: ScreenFace, n_chunks: int, tile_ymin: torch.Tensor,
+                     tile_ymax: torch.Tensor) -> torch.Tensor:
+    """(N, T, 2) int32 [start, end) of the sorted chunks whose y-extent can
+    touch tiles spanning rows [tile_ymin, tile_ymax]: chunks are
+    ymin-sorted, so the first chunk with ymin > tile_ymax ends the scan,
+    and the prefix whose running-max ymax < tile_ymin lies strictly above
+    the tile."""
     B, F = sf.valid.shape
     pad = n_chunks * LANE - F
     big = torch.full_like(sf.valid, _BIG)
@@ -112,9 +135,6 @@ def chunk_ranges(sf: ScreenFace, n_chunks: int, n_tiles: int, width: int) -> tor
                                     (0, pad), value=-_BIG)
     chunk_ymin = fymin.reshape(B, n_chunks, LANE).amin(-1)
     chunk_ymax = fymax.reshape(B, n_chunks, LANE).amax(-1)
-    tile = torch.arange(n_tiles, device=sf.valid.device)
-    tile_ymin = torch.div(tile * TILE_PX, width, rounding_mode="floor").float()
-    tile_ymax = torch.div((tile + 1) * TILE_PX - 1, width, rounding_mode="floor").float() + 1.0
     cummax_ymax = torch.cummax(chunk_ymax, dim=1).values
     ends = (chunk_ymin[:, None, :] <= tile_ymax[None, :, None]).sum(-1)
     starts = (cummax_ymax[:, None, :] < tile_ymin[None, :, None]).sum(-1)
@@ -139,6 +159,44 @@ def prepare_raster(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
     geom, col = pack_faces(sf, n_chunks)
     ranges = chunk_ranges(sf, n_chunks, n_tiles, width)
     return RasterInputs(ranges, geom, col, order, height, width)
+
+
+def prepare_raster_binned(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
+                          faces: torch.Tensor, face_valid: Optional[torch.Tensor],
+                          height: int, width: int, xbin_w: int, tile_rows: int,
+                          cull_backfaces: bool = False) -> RasterInputs:
+    """Pre-kernel work of the x-binned Gouraud raster (``_rasterize_binned``
+    :469-517): every face is copied into each of the ceil(W / xbin_w)
+    x-bands, valid in a band when it is valid and its bbox meets
+    [k xbin_w, (k + 1) xbin_w); each band is stably y-sorted with its
+    invalid copies last and packed; the range table is keyed by (image,
+    band, y-tile) with tile_ymax exclusive at (ty + 1) tile_rows."""
+    if vert_colors.shape[-1] != 3:
+        raise ValueError("the binned raster is Gouraud only and takes (r, g, b) attrs, "
+                         f"got {tuple(vert_colors.shape)}")
+    F = faces.shape[-2]
+    n_chunks = (F + LANE - 1) // LANE
+    n_bands = (width + xbin_w - 1) // xbin_w
+    n_ytiles = (height + tile_rows - 1) // tile_rows
+    sf = build_screen_faces(verts_screen, vert_colors, faces, face_valid,
+                            cull_backfaces=cull_backfaces)
+    B, dev = sf.valid.shape[0], sf.valid.device
+    xlo = torch.arange(n_bands, dtype=torch.float32, device=dev)[None, :, None] * xbin_w
+    in_band = ((sf.valid[:, None, :] > 0) & (sf.bbox[:, None, :, 2] >= xlo)
+               & (sf.bbox[:, None, :, 0] < xlo + xbin_w)).float()
+
+    def banded(a):  # (B, F, ...) -> (B * NB, F, ...)
+        return a[:, None].expand((B, n_bands) + a.shape[1:]).reshape((B * n_bands,) + a.shape[1:])
+
+    sfb = ScreenFace(*(banded(a) for a in sf))._replace(valid=in_band.reshape(B * n_bands, F))
+    sfb, order = _sort_faces(sfb)
+    geom, col = pack_faces(sfb, n_chunks)
+    ty = torch.arange(n_ytiles, dtype=torch.float32, device=dev)
+    ranges = _ranges_for_rows(sfb, n_chunks, ty * tile_rows, (ty + 1) * tile_rows)
+    shape = (B, n_bands, n_chunks, N_ROWS, LANE)
+    return RasterInputs(ranges.reshape(B, n_bands, n_ytiles, 2), geom.reshape(shape),
+                        col.reshape(shape), order.reshape(B, n_bands, F), height, width,
+                        (xbin_w, tile_rows))
 
 
 def _chunk_boxes(geom: torch.Tensor) -> torch.Tensor:
@@ -167,55 +225,70 @@ def _chunk_boxes(geom: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(box, nan=0.0, posinf=1e9, neginf=-1e9).floor().clamp(-1e9, 1e9).long()
 
 
-def _nearest_face_torch(ranges: torch.Tensor, geom: torch.Tensor, height: int, width: int):
+def _nearest_face_torch(ranges: torch.Tensor, geom: torch.Tensor, height: int, width: int,
+                        tile: Tuple[int, ...] = ()):
     """Plain pass 1: the same chunk scan, key packing and tie-break as the
-    kernel. Each chunk of each image is evaluated only on the pixels of its
-    tiles' ranges inside its box (``_chunk_boxes``); outside it no face of
-    the chunk can hit, so the keys are the kernel's.
+    kernels. Each chunk is evaluated only on the pixels of its tiles'
+    ranges inside its box (``_chunk_boxes``); outside it no face of the
+    chunk can hit, so the keys are the kernel's. ``tile`` () is the 1-D
+    layout (ranges (B, T, 2), geom (B, NC, 16, 128), TILE_PX-pixel tiles);
+    (xbin_w, tile_rows) the binned one (ranges (B, NB, YT, 2), geom
+    (B, NB, NC, 16, 128), band k holding the columns [k xbin_w,
+    (k + 1) xbin_w) and tile ty the rows [ty tile_rows, (ty + 1) tile_rows)).
     -> (best key, best chunk), each (B, H * W) int32."""
     B = ranges.shape[0]
     dev = geom.device
+    if tile:
+        xbin_w, tile_rows = tile
+    else:
+        xbin_w, geom, ranges = width, geom[:, None], ranges[:, None]
     lane = torch.arange(LANE, dtype=torch.int32, device=dev)
     best = torch.zeros((B, height * width), dtype=torch.int32, device=dev)
     best_chunk = torch.zeros_like(best)
-    boxes = _chunk_boxes(geom).cpu().tolist()
     ranges_host = ranges.cpu()
-    for b in range(B):
-        for c in range(geom.shape[1]):
-            x0, x1, y0, y1 = boxes[b][c]
-            x0, y0, x1, y1 = max(x0, 0), max(y0, 0), min(x1, width), min(y1, height)
-            if x0 >= x1 or y0 >= y1:
-                continue
-            yy, xx = torch.meshgrid(torch.arange(y0, y1, device=dev),
-                                    torch.arange(x0, x1, device=dev), indexing="ij")
-            pix = (yy * width + xx).reshape(-1)
-            tile = torch.div(pix, TILE_PX, rounding_mode="floor")
-            r = ranges_host[b].to(dev)[tile]
-            pix = pix[(r[:, 0] <= c) & (c < r[:, 1])]
-            g = geom[b, c][:, None, :]  # (16, 1, 128)
-            for p0 in range(0, pix.numel(), _TWIN_ELEMS // LANE):
-                p = pix[p0:p0 + _TWIN_ELEMS // LANE]
-                x = (p % width).float()[:, None] + 0.5
-                y = torch.div(p, width, rounding_mode="floor").float()[:, None] + 0.5
-                lam0 = x * g[0] + y * g[2] + g[4]
-                lam1 = x * g[1] + y * g[3] + g[5]
-                lam2 = 1.0 - lam0 - lam1
-                w = x * g[6] + y * g[7] + g[8]
-                wbits = w.view(torch.int32)
-                hit = (lam0 >= _EPS_EDGE) & (lam1 >= _EPS_EDGE) & (lam2 >= _EPS_EDGE) & (wbits > 0)
-                m = torch.where(hit, (wbits & ~_LANE_MASK) | lane, 0).amax(-1)
-                bs = best[b, p]
-                best_chunk[b, p] = torch.where(m > bs, c, best_chunk[b, p])
-                best[b, p] = torch.maximum(bs, m)
+    for k in range(geom.shape[1]):
+        boxes = _chunk_boxes(geom[:, k]).cpu().tolist()
+        band_x0, band_x1 = k * xbin_w, min((k + 1) * xbin_w, width)
+        for b in range(B):
+            for c in range(geom.shape[2]):
+                x0, x1, y0, y1 = boxes[b][c]
+                x0, y0 = max(x0, band_x0), max(y0, 0)
+                x1, y1 = min(x1, band_x1), min(y1, height)
+                if x0 >= x1 or y0 >= y1:
+                    continue
+                yy, xx = torch.meshgrid(torch.arange(y0, y1, device=dev),
+                                        torch.arange(x0, x1, device=dev), indexing="ij")
+                pix = (yy * width + xx).reshape(-1)
+                t = (torch.div(yy.reshape(-1), tile_rows, rounding_mode="floor") if tile
+                     else torch.div(pix, TILE_PX, rounding_mode="floor"))
+                r = ranges_host[b, k].to(dev)[t]
+                pix = pix[(r[:, 0] <= c) & (c < r[:, 1])]
+                g = geom[b, k, c][:, None, :]  # (16, 1, 128)
+                for p0 in range(0, pix.numel(), _TWIN_ELEMS // LANE):
+                    p = pix[p0:p0 + _TWIN_ELEMS // LANE]
+                    x = (p % width).float()[:, None] + 0.5
+                    y = torch.div(p, width, rounding_mode="floor").float()[:, None] + 0.5
+                    lam0 = x * g[0] + y * g[2] + g[4]
+                    lam1 = x * g[1] + y * g[3] + g[5]
+                    lam2 = 1.0 - lam0 - lam1
+                    w = x * g[6] + y * g[7] + g[8]
+                    wbits = w.view(torch.int32)
+                    hit = ((lam0 >= _EPS_EDGE) & (lam1 >= _EPS_EDGE) & (lam2 >= _EPS_EDGE)
+                           & (wbits > 0))
+                    m = torch.where(hit, (wbits & ~_LANE_MASK) | lane, 0).amax(-1)
+                    bs = best[b, p]
+                    best_chunk[b, p] = torch.where(m > bs, c, best_chunk[b, p])
+                    best[b, p] = torch.maximum(bs, m)
     return best, best_chunk
 
 
-def _winner_planes(ranges, geom, col, height, width):
+def _winner_planes(ranges, geom, col, height, width, tile: Tuple[int, ...] = ()):
     """Pass 1 plus the gather of each pixel's winning face planes ->
-    (x, y, hit mask, depth, win_sorted, planes (B, H*W, 16))."""
-    B = ranges.shape[0]
-    n_chunks, n_pix = geom.shape[1], height * width
-    best, best_chunk = _nearest_face_torch(ranges, geom, height, width)
+    (x, y, hit mask, depth, win_sorted, planes (B, H*W, 16)); win_sorted
+    indexes the faces of the pixel's band (``tile`` as for
+    ``_nearest_face_torch``)."""
+    B, n_pix = ranges.shape[0], height * width
+    best, best_chunk = _nearest_face_torch(ranges, geom, height, width, tile)
     pix = torch.arange(n_pix, device=geom.device)
     x = (pix % width).float() + 0.5
     y = torch.div(pix, width, rounding_mode="floor").float() + 0.5
@@ -223,8 +296,11 @@ def _winner_planes(ranges, geom, col, height, width):
     w_rec = torch.clamp_min((best & ~_LANE_MASK).view(torch.float32), 1e-30)
     depth = torch.where(hitm, torch.ones_like(w_rec) / w_rec, 0.0)
     win_sorted = best_chunk * LANE + (best & _LANE_MASK)
-    planes = col.transpose(2, 3).reshape(B, n_chunks * LANE, N_ROWS)
-    fc = torch.gather(planes, 1, win_sorted.long()[..., None].expand(B, n_pix, N_ROWS))
+    n_faces = geom.shape[-3] * LANE  # padded faces of one band
+    band = torch.div(pix % width, tile[0], rounding_mode="floor") if tile else torch.zeros_like(pix)
+    planes = col.transpose(-2, -1).reshape(B, -1, N_ROWS)
+    idx = band[None] * n_faces + win_sorted.long()
+    fc = torch.gather(planes, 1, idx[..., None].expand(B, n_pix, N_ROWS))
     return x, y, hitm, depth, win_sorted, fc
 
 
@@ -250,12 +326,8 @@ def rasterize_batch_uv_torch(ranges: torch.Tensor, geom: torch.Tensor, col: torc
             win_sorted.to(torch.int32), depth)
 
 
-def rasterize_batch_rgb_torch(ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                              height: int, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the Gouraud kernel: -> (rgb (B, H*W, 3) in
-    {k * float32(1/255)}, depth (B, H*W))."""
-    x, y, hitm, depth, _, fc = _winner_planes(ranges, geom, col, height, width)
-    inv255 = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=geom.device)
+def _gouraud_pass2(x, y, hitm, depth, fc) -> Tuple[torch.Tensor, torch.Tensor]:
+    inv255 = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=fc.device)
 
     def q8(k):
         c = x * fc[..., k] + y * fc[..., k + 3] + fc[..., k + 6]
@@ -263,6 +335,25 @@ def rasterize_batch_rgb_torch(ranges: torch.Tensor, geom: torch.Tensor, col: tor
 
     rgb = torch.stack([q8(0), q8(1), q8(2)], dim=-1) * inv255
     return torch.where(hitm[..., None], rgb, torch.zeros_like(rgb)), depth
+
+
+def rasterize_batch_rgb_torch(ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
+                              height: int, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the Gouraud kernel: -> (rgb (B, H*W, 3) in
+    {k * float32(1/255)}, depth (B, H*W))."""
+    x, y, hitm, depth, _, fc = _winner_planes(ranges, geom, col, height, width)
+    return _gouraud_pass2(x, y, hitm, depth, fc)
+
+
+def rasterize_batch_rgb_binned_torch(ranges: torch.Tensor, geom: torch.Tensor,
+                                     col: torch.Tensor, height: int, width: int, xbin_w: int,
+                                     tile_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the x-binned Gouraud kernel on the inputs of
+    ``prepare_raster_binned``: -> (rgb (B, H*W, 3), depth (B, H*W)), the
+    pixels outside the image cropped."""
+    x, y, hitm, depth, _, fc = _winner_planes(ranges, geom, col, height, width,
+                                              (xbin_w, tile_rows))
+    return _gouraud_pass2(x, y, hitm, depth, fc)
 
 
 class RasterLibrary:
@@ -284,6 +375,9 @@ class RasterLibrary:
             lib.raster_rgb_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                                               + [ctypes.c_void_p])
             lib.raster_rgb_launch.restype = ctypes.c_int
+            lib.raster_rgb_binned_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                                                     + [ctypes.c_void_p])
+            lib.raster_rgb_binned_launch.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
@@ -300,6 +394,28 @@ def _check_inputs(name: str, ranges, geom, col, height: int, width: int):
                          f"{expect} float32, contiguous, on one CUDA device")
     if n_tiles * TILE_PX < height * width:
         raise ValueError(f"{name}: the range table covers fewer pixels than the image")
+
+
+def _check_binned_inputs(name: str, ranges, geom, col, height: int, width: int, xbin_w: int,
+                         tile_rows: int):
+    if ranges.dim() != 4 or geom.dim() != 5:
+        raise ValueError(f"{name}: ranges (B, NB, YT, 2) and geom/col (B, NB, NC, 16, 128)")
+    B, n_bands, n_ytiles, two = ranges.shape
+    expect = (B, n_bands, geom.shape[2], N_ROWS, LANE)
+    if (two != 2 or tuple(geom.shape) != expect or tuple(col.shape) != expect
+            or ranges.dtype != torch.int32 or geom.dtype != torch.float32
+            or col.dtype != torch.float32
+            or not all(t.is_contiguous() and t.device == geom.device
+                       for t in (ranges, geom, col))):
+        raise ValueError(f"{name}: ranges (B, NB, YT, 2) int32 and geom/col {expect} "
+                         "float32, contiguous, on one CUDA device")
+    if (xbin_w < 1 or tile_rows < 1 or n_bands != -(-width // xbin_w)
+            or n_ytiles != -(-height // tile_rows)):
+        raise ValueError(f"{name}: ranges {tuple(ranges.shape)} do not tile a "
+                         f"{height}x{width} image in {tile_rows}x{xbin_w} tiles")
+    if xbin_w * tile_rows > MAX_BINNED_TILE_PX:
+        raise ValueError(f"{name}: a {tile_rows}x{xbin_w} tile holds more than "
+                         f"{MAX_BINNED_TILE_PX} pixels")
 
 
 class RasterKernel:
@@ -349,9 +465,39 @@ class RasterKernel:
         return out
 
 
+class BinnedRasterKernel(RasterKernel):
+    """The x-binned Gouraud kernel (B3) on the inputs of
+    ``prepare_raster_binned``; its tile of tile_rows x xbin_w pixels may
+    hold at most MAX_BINNED_TILE_PX."""
+
+    def __call__(self, ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
+                 height: int, width: int, xbin_w: int,
+                 tile_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        if geom.device.type == "cpu":
+            return self.twin(ranges, geom, col, height, width, xbin_w, tile_rows)
+        if geom.device.type != "cuda":
+            raise ValueError(f"{self.name}: unsupported device {geom.device}")
+        _check_binned_inputs(self.name, ranges, geom, col, height, width, xbin_w, tile_rows)
+        B, n_bands, n_ytiles, _ = ranges.shape
+        lib = self.build()
+        n_pix = height * width
+        rgb = torch.empty((B, n_pix, 3), dtype=torch.float32, device=geom.device)
+        depth = torch.empty((B, n_pix), dtype=torch.float32, device=geom.device)
+        err = lib.raster_rgb_binned_launch(
+            ranges.data_ptr(), geom.data_ptr(), col.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
+            B, n_bands, n_ytiles, geom.shape[2], height, width, xbin_w, tile_rows,
+            torch.cuda.current_stream(geom.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name}_launch failed: CUDA error {err}")
+        self.launches += 1
+        return rgb, depth
+
+
 _library = RasterLibrary()
 raster_uv = RasterKernel("raster_uv", _library, rasterize_batch_uv_torch)
 raster_rgb = RasterKernel("raster_rgb", _library, rasterize_batch_rgb_torch)
+raster_rgb_binned = BinnedRasterKernel("raster_rgb_binned", _library,
+                                       rasterize_batch_rgb_binned_torch)
 
 
 def finish_uv_raster(inp: RasterInputs, quv, qsp, win_sorted, depth):
@@ -386,9 +532,16 @@ def rasterize_batch_uv(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
 
 def rasterize_batch_rgb(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
                         faces: torch.Tensor, face_valid: Optional[torch.Tensor],
-                        height: int, width: int, cull_backfaces: bool = False):
+                        height: int, width: int, cull_backfaces: bool = False,
+                        xbin_w: Optional[int] = None, tile_rows: int = 8):
     """Gouraud raster -> (rgb (B, H, W, 3) 8-bit quantised, depth (B, H, W),
-    0 = background)."""
+    0 = background). With ``xbin_w`` set and the image wider than one band,
+    the x-binned kernel in tile_rows x xbin_w tiles, as
+    ``rasterize_batch_pallas`` chooses (:344-347); else the 1-D kernel."""
+    if xbin_w is not None and width > xbin_w:
+        inp = prepare_raster_binned(verts_screen, vert_colors, faces, face_valid, height,
+                                    width, xbin_w, tile_rows, cull_backfaces)
+        return finish_rgb_raster(inp, *raster_rgb_binned(*inp.args()))
     inp = prepare_raster(verts_screen, vert_colors, faces, face_valid, height, width,
                          cull_backfaces)
     out = raster_rgb(inp.ranges, inp.geom, inp.col, height, width)

@@ -3,43 +3,60 @@
 
 Phases, each fatal on failure:
   1. device line (nvidia-smi name and power limit, torch device name);
-  2. build every CUDA kernel of the path: ``artiboost_torch/csrc/raster.cu``
-     holds both raster kernels (uv and Gouraud rgb);
+  2. build every CUDA kernel: ``artiboost_torch/csrc/raster.cu`` holds the
+     three raster kernels (uv B1, Gouraud rgb B2, x-binned Gouraud B3);
+     ptxas registers, spills and shared memory of each;
   3. each kernel against its plain PyTorch twin on the card, bit for bit:
      the seeded scenes of ``artiboost_torch/ops/raster_scenes.py`` (random
      triangles at F = 60 and F = 700, invalid faces, a two-triangle depth
-     tie) with back-face culling off and on; the uv kernel on one val batch
-     of the main path (B = 128 at 112x112) and the rgb kernel on one
-     SyntheticHO render chunk at full width (B = 16 at 512x512, hand plus
-     an object of up to 1024 faces); kernel and plain times at those shapes;
+     tie) with back-face culling off and on, B3 at (xbin_w, tile_rows) =
+     (16, 8), (8, 4) and (16, 5); the uv kernel on one val batch of the
+     main path (B = 128 at 112x112); the rgb kernel and B3 at (64, 8) and
+     (128, 16) on one SyntheticHO render chunk at full width (B = 16 at
+     512x512, hand plus an object of up to 1024 faces), B3 also against B2
+     there (depth within 1e-6; colour equal but at depth-key ties, which
+     are counted); kernel and plain times and bounds at those shapes;
   4. the val-and-mining slice at full width (config
      ho3dv2_clasbased_artiboost.yaml: ResNet34 in bfloat16, 224x224, batch
      128, CCV 4 x 288 x 50, method_1, the hand_obj refiner with ITERS 3
      from assets/refinenet_tpu.npz; VAL_LEN 8 x 128) for 2 epochs without
-     the train pass;
+     the train pass; refined poses finite and moved off the scrambled ones;
   5. the train pass at full width through ``artiboost_torch.train.run``:
      the same config with DATASET.TRAIN = SyntheticHO (RAW_SIZE 512,
      N_SAMPLES 640, so 80 real + 48 synth per batch and 8 steps per
      epoch), VAL_LEN 2 x 128, 2 epochs, EVAL_FREQ 1 / VAL_START_EPOCH 0;
-     then the KEY_VALID masks of a mixed batch whose real half lacks the
-     MANO keys.
-Every launch counter is zeroed just before phases 4 and 5 and read just
-after each. TF32 is off. The lines before the last: the kernel table as one
-JSON object and the card's name and power limit; the last line: the ok JSON.
+     the refiner checked as in 4; then the KEY_VALID masks of a mixed batch
+     whose real half lacks the MANO keys;
+  6. the parity gate ``artiboost_torch.chip_parity.run_all()`` (the path
+     that runs B3), its summary printed;
+  7. checkpoint and resume: the train pass of 5 at a smaller depth
+     (SyntheticHO N_SAMPLES 160, VAL_LEN 128) checkpoints epoch 1 into a
+     temporary experiment directory; a fresh ``run`` resumes it, the
+     restored model, optimizer, schedule and ArtiBoost state are held
+     bit-equal to what was saved, and epoch 2 runs.
+Every launch counter is zeroed just before phases 4, 5, 6 and 7 and read
+just after each. TF32 is off. The lines before the last: the kernel table
+as one JSON object (B1 and B2 launches from phase 5, B3 launches from phase
+6) and the card's name and power limit; the last line: the ok JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
 """
+import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # non-tensor FP32, H100 SXM data sheet
 RASTER_OPS_PER_LANE = 25        # pass-1 operations per (pixel, face)
+BINNED_CHECK_TILES = ((16, 8), (8, 4), (16, 5))   # (xbin_w, tile_rows)
+BINNED_FULL_TILES = ((64, 8), (128, 16))
 
 
 def fail(msg: str):
@@ -68,9 +85,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 def compare(kernel, finish, inp, torch):
     """Kernel vs its plain twin on one prepared input: -> (max abs err, equal)."""
-    args = (inp.ranges, inp.geom, inp.col, inp.height, inp.width)
-    k = finish(inp, *kernel(*args))
-    p = finish(inp, *kernel.twin(*args))
+    k = finish(inp, *kernel(*inp.args()))
+    p = finish(inp, *kernel.twin(*inp.args()))
     torch.cuda.synchronize()
     err, equal = 0.0, True
     for a, b in zip(k, p):
@@ -95,27 +111,77 @@ def capture(module, name, fn):
     return seen["call"]
 
 
-def timing(kernel, inp, reps_plain: int, card: str, torch):
-    """Kernel and twin times (CUDA events) and the bound at this input."""
+def spy_refiners(loader_module):
+    """Wrap every refiner the loader builds from now on: -> (records of
+    (scrambled pose, scrambled tsl, refined pose, refined tsl), restore)."""
+    records, orig = [], loader_module.build_refiner
+
+    def build(*args, **kw):
+        inner = orig(*args, **kw)
+
+        def refine(feed, obj_verts=None, obj_valid=None):
+            out = inner(feed, obj_verts, obj_valid)
+            records.append((feed["hand_pose"], feed["hand_tsl"], out["hand_pose"],
+                            out["hand_tsl"]))
+            return out
+
+        return refine
+
+    loader_module.build_refiner = build
+    return records, lambda: setattr(loader_module, "build_refiner", orig)
+
+
+def check_refined(records, label: str, torch):
+    """Every refined pose finite and moved off its scrambled input."""
+    check(bool(records), f"{label}: the refiner never ran")
+    pose0, tsl0, pose1, tsl1 = (torch.cat([r[i] for r in records]) for i in range(4))
+    check(bool(torch.isfinite(pose1).all() and torch.isfinite(tsl1).all()),
+          f"{label}: non-finite refined poses")
+    d_pose = (pose1 - pose0).abs().amax(-1)
+    d_tsl = (tsl1 - tsl0).norm(dim=-1)
+    moved = (d_pose > 0) | (d_tsl > 0)
+    check(bool(moved.all()), f"{label}: {int((~moved).sum())} of {moved.numel()} refined "
+          "poses equal their scrambled input")
+    print(f"{label}: hand_obj refiner (ITERS 3) ran {len(records)} times on {moved.numel()} "
+          f"poses, all finite and moved: mean max |d pose| {float(d_pose.mean()):.4f} rad, "
+          f"mean |d tsl| {float(d_tsl.mean()) * 1e3:.3f} mm", flush=True)
+
+
+def scanned_chunk_pixels(inp, torch) -> float:
+    """Sum over the kernel's tiles of (in-image pixels) x (chunks in the
+    tile's range): the pass-1 work of this input."""
     from artiboost_torch.ops.rasterizer_cuda import TILE_PX
 
-    args = (inp.ranges, inp.geom, inp.col, inp.height, inp.width)
-    ms = cuda_ms(lambda: kernel(*args), 50)
-    plain_ms = cuda_ms(lambda: kernel.twin(*args), reps_plain)
-    B, n_pix = inp.geom.shape[0], inp.height * inp.width
-    span = (inp.ranges[..., 1] - inp.ranges[..., 0]).double()  # (B, T) chunks scanned
-    tile_pix = torch.clamp(n_pix - torch.arange(span.shape[1], device=span.device) * TILE_PX,
+    span = (inp.ranges[..., 1] - inp.ranges[..., 0]).double()
+    dev = span.device
+    if inp.tile:  # (B, NB, YT): tiles of tile_rows x xbin_w, cropped at the image
+        xbin_w, tile_rows = inp.tile
+        cols = torch.clamp(inp.width - torch.arange(span.shape[1], device=dev) * xbin_w,
+                           0, xbin_w)
+        rows = torch.clamp(inp.height - torch.arange(span.shape[2], device=dev) * tile_rows,
+                           0, tile_rows)
+        return float((span * (cols[:, None] * rows[None, :]).double()).sum())
+    n_pix = inp.height * inp.width
+    tile_pix = torch.clamp(n_pix - torch.arange(span.shape[1], device=dev) * TILE_PX,
                            0, TILE_PX).double()
-    chunk_px = float((span * tile_pix).sum())
+    return float((span * tile_pix).sum())
+
+
+def timing(kernel, inp, reps_plain: int, card: str, torch, label: str = ""):
+    """Kernel and twin times (CUDA events) and the bound at this input."""
+    ms = cuda_ms(lambda: kernel(*inp.args()), 50)
+    plain_ms = cuda_ms(lambda: kernel.twin(*inp.args()), reps_plain)
+    B, n_pix = inp.geom.shape[0], inp.height * inp.width
+    chunk_px = scanned_chunk_pixels(inp, torch)
     ops = chunk_px * 128 * RASTER_OPS_PER_LANE
     nbytes = sum(t.numel() * t.element_size() for t in (inp.ranges, inp.geom, inp.col)) \
         + 4 * B * n_pix * 4  # four 32-bit output words per pixel
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP32_OPS_PER_S
     bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
-    print(f"{kernel.name} timing ({card}): B={B} {inp.height}x{inp.width} F={inp.order.shape[1]}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"(mean {chunk_px / (B * n_pix):.3f} chunks/pixel, {nbytes} bytes, {ops:.4g} ops)",
-          flush=True)
+    print(f"{kernel.name} timing ({card}): B={B} {inp.height}x{inp.width} "
+          f"F={inp.order.shape[-1]}{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} (mean {chunk_px / (B * n_pix):.3f} "
+          f"chunks/pixel, {nbytes} bytes, {ops:.4g} ops)", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -126,6 +192,80 @@ def full_width_config():
     cfg["TRAIN"]["EVAL_FREQ"] = 1
     cfg["TRAIN"]["VAL_START_EPOCH"] = 0
     return cfg
+
+
+def checkpoint_resume(cfg, init, device) -> str:
+    """Phase 7: ``run`` checkpoints epoch 1 into a temporary experiment
+    directory; a fresh ``run`` resumes it, and what the resume restored
+    (model, optimizer, schedule, ArtiBoost state) is held bit-equal to what
+    the first run ended with; then epoch 2 runs. -> a summary line."""
+    import torch
+
+    from artiboost_torch.train import run
+    from artiboost_torch.utils.recorder import Recorder
+
+    class ResumeProbe(Recorder):
+        """Keeps copies of what a resume restored, before training goes on."""
+
+        def resume_checkpoints(self, step, path=None):
+            epoch = super().resume_checkpoints(step, path)
+            self.restored = {"epoch": epoch, "step": step.step,
+                             "model": copy.deepcopy(step.model.state_dict()),
+                             "optimizer": copy.deepcopy(step.optimizer.state_dict())}
+            return epoch
+
+        def resume_artiboost_state(self):
+            self.artiboost = super().resume_artiboost_state()
+            return self.artiboost
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_exp_")
+    t0 = time.perf_counter()
+    try:
+        rec = Recorder("smoke", cfg, root=root)
+        try:
+            first = run(cfg, epochs=1, device=device, model_state=init, recorder=rec)
+        finally:
+            rec.close()
+        saved = {"step": first["step"].step,
+                 "model": copy.deepcopy(first["model"].state_dict()),
+                 "optimizer": copy.deepcopy(first["step"].optimizer.state_dict()),
+                 "artiboost": first["loader"].state_dict()}
+        del first
+        probe = ResumeProbe("smoke", cfg, root=root, resume_path=rec.dump_path)
+        try:
+            second = run(cfg, epochs=2, device=device, model_state=init, recorder=probe,
+                         resume=True)
+        finally:
+            probe.close()
+        got = probe.restored
+        check(got["epoch"] == 1 and got["step"] == saved["step"] > 0,
+              f"resumed at epoch {got['epoch']} step {got['step']}, saved step {saved['step']}")
+        bad = [k for k, v in saved["model"].items() if not torch.equal(got["model"][k], v)]
+        check(not bad, f"model tensors not restored bit-equal: {bad[:5]}")
+        want_opt, got_opt = saved["optimizer"], got["optimizer"]
+        check(want_opt["param_groups"] == got_opt["param_groups"]
+              and all(torch.equal(got_opt["state"][i][k], v)
+                      for i, st in want_opt["state"].items() for k, v in st.items()),
+              "optimizer state not restored bit-equal")
+        ab = probe.artiboost
+        check(ab["use_synth"] == saved["artiboost"]["use_synth"]
+              and all(bool((ab[k] == saved["artiboost"][k]).all()) for k in (
+                  "sample_weight_map", "occurrence_map", "epoch_idx", "rng_state")),
+              "ArtiBoost state not restored bit-equal")
+        hist = second["history"]
+        check([r["epoch"] for r in hist] == [1], f"the resumed run ran epochs "
+              f"{[r['epoch'] for r in hist]}, expected [1]")
+        check(all(math.isfinite(v) for v in hist[0]["train"]["final_loss"]),
+              "non-finite loss after the resume")
+        latest = torch.load(os.path.join(probe.ckpt_dir, "latest.pt"), map_location="cpu",
+                            weights_only=True)
+        check(latest["epoch"] == 2, f"the last checkpoint holds epoch {latest['epoch']}")
+        files = sorted(os.listdir(probe.ckpt_dir))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return (f"epoch 1 saved and resumed bit-equal (model {len(saved['model'])} tensors, "
+            f"optimizer, schedule step {saved['step']}, ArtiBoost maps and generator), epoch 2 "
+            f"run, checkpoints {files}; {time.perf_counter() - t0:.2f} s for both runs")
 
 
 def main():
@@ -147,6 +287,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from artiboost_torch import chip_parity
+    from artiboost_torch.artiboost import loader as loader_module
     from artiboost_torch.artiboost import renderer
     from artiboost_torch.artiboost.loader import ArtiBoostLoader
     from artiboost_torch.criterions import build_criterion
@@ -159,12 +301,23 @@ def main():
         finish_rgb_raster,
         finish_uv_raster,
         prepare_raster,
+        prepare_raster_binned,
         raster_rgb,
+        raster_rgb_binned,
         raster_uv,
     )
     from artiboost_torch.parallel.train_state import eval_step
     from artiboost_torch.train import StageTimer, run, slice_config, val_epoch
     from artiboost_torch.utils.batching import KEY_VALID, union_concat
+
+    all_kernels = (raster_uv, raster_rgb, raster_rgb_binned)
+
+    def zero_counts():
+        for k in all_kernels:
+            k.launches = 0
+
+    def read_counts():
+        return {k.name: k.launches for k in all_kernels}
 
     # ---- 1. device ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -179,14 +332,17 @@ def main():
     # ---- 2. build ----
     t0 = time.perf_counter()
     raster_uv.build()
-    print(f"build: {raster_uv.library.source} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {raster_uv.library.source} (raster_uv, raster_rgb, raster_rgb_binned) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in raster_uv.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "smem" in line):
             print(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernels against their plain twins ----
-    kernels = {k.name: {"kernel": k, "max_abs_err": 0.0} for k in (raster_uv, raster_rgb)}
-    finish = {"raster_uv": finish_uv_raster, "raster_rgb": finish_rgb_raster}
+    kernels = {k.name: {"kernel": k, "max_abs_err": 0.0} for k in all_kernels}
+    finish = {"raster_uv": finish_uv_raster, "raster_rgb": finish_rgb_raster,
+              "raster_rgb_binned": finish_rgb_raster}
 
     def hold(kernel, inp, label):
         err, equal = compare(kernel, finish[kernel.name], inp, torch)
@@ -202,6 +358,11 @@ def main():
                 hold(kernel, prepare_raster(t["verts"], attrs, t["faces"], t["valid"],
                                             sc["H"], sc["W"], cull_backfaces=cull),
                      f"{name} cull={cull}")
+            for xbin_w, tile_rows in BINNED_CHECK_TILES:
+                hold(raster_rgb_binned,
+                     prepare_raster_binned(t["verts"], rgb, t["faces"], t["valid"], sc["H"],
+                                           sc["W"], xbin_w, tile_rows, cull_backfaces=cull),
+                     f"{name} cull={cull} tile {tile_rows}x{xbin_w}")
 
     cfg = full_width_config()
     val_cfg = dict(cfg, MANAGER=dict(cfg["MANAGER"], VAL_LEN=8 * 128))
@@ -218,15 +379,45 @@ def main():
     args, kw = capture(renderer, "rasterize_batch_rgb", lambda: build_dataset(
         dict(synth_cfg, N_SAMPLES=16), cfg["DATA_PRESET"], device=dev))
     inp = prepare_raster(*args, **kw)
-    hold(raster_rgb, inp, f"SyntheticHO chunk B={inp.geom.shape[0]} {inp.height}x{inp.width}")
+    chunk = f"SyntheticHO chunk B={inp.geom.shape[0]} {inp.height}x{inp.width}"
+    hold(raster_rgb, inp, chunk)
     kernels["raster_rgb"].update(timing(raster_rgb, inp, 3, card, torch))
+    rgb_1d, depth_1d = finish_rgb_raster(inp, *raster_rgb(*inp.args()))
+    for xbin_w, tile_rows in BINNED_FULL_TILES:
+        tile = f"tile {tile_rows}x{xbin_w}"
+        binp = prepare_raster_binned(*args, xbin_w=xbin_w, tile_rows=tile_rows, **kw)
+        hold(raster_rgb_binned, binp, f"{chunk} {tile}")
+        rgb_b, depth_b = finish_rgb_raster(binp, *raster_rgb_binned(*binp.args()))
+        # The per-band sort gives a face another chunk and lane, so where two
+        # faces tie on the truncated depth key the lane order can hand the
+        # pixel to the other face: depth stays bit-equal, the colour may not.
+        depth_err = float((depth_b - depth_1d).abs().max())
+        rgb_diff = (rgb_b != rgb_1d).any(-1)
+        n_tie = int((rgb_diff & (depth_b == depth_1d)).sum())
+        n_diff = int(((depth_b != depth_1d) | rgb_diff).sum())
+        rgb_err = float((rgb_b - rgb_1d).abs().max())
+        print(f"raster_rgb_binned {chunk} {tile} against raster_rgb: depth max_abs_err="
+              f"{depth_err}, rgb max_abs_err={rgb_err}; {n_diff} of {depth_b.numel()} pixels "
+              f"differ at all, {n_tie} of them depth-key ties", flush=True)
+        check(depth_err <= 1e-6 and int(rgb_diff.sum()) == n_tie
+              and n_tie <= 1e-4 * depth_b.numel(),
+              f"raster_rgb_binned {tile} departs from raster_rgb: depth {depth_err}, "
+              f"{int(rgb_diff.sum())} rgb pixels of which {n_tie} at depth ties")
+        timed = timing(raster_rgb_binned, binp, 2, card, torch, f" {tile}")
+        if "ms" not in kernels["raster_rgb_binned"]:
+            kernels["raster_rgb_binned"].update(timed)
+        del binp, rgb_b, depth_b
 
     # ---- 4. the val-and-mining slice (no train pass), bf16 ----
-    raster_uv.launches = raster_rgb.launches = 0
+    records4, restore = spy_refiners(loader_module)
+    zero_counts()
     timer4 = StageTimer(dev)
     t0 = time.perf_counter()
-    loader = ArtiBoostLoader(cfg=slice_config(val_cfg), batch_size=128, n_epochs=2, seed=1,
-                             device=dev)
+    try:
+        loader = ArtiBoostLoader(cfg=slice_config(val_cfg), batch_size=128, n_epochs=2,
+                                 seed=1, device=dev)
+    finally:
+        restore()
     evaluator = build_evaluator(val_cfg["EVALUATOR"], device=dev)
     criterion = build_criterion(val_cfg)
     with torch.random.fork_rng(devices=[]):
@@ -234,20 +425,25 @@ def main():
         arch = build_arch(val_cfg["ARCH"], val_cfg["DATA_PRESET"]).to(dev)
     check(arch.model_list[0].backbone.conv1.compute_dtype == torch.bfloat16,
           "ARCH.DTYPE bfloat16 is not applied")
+    t = timer4.mark()
     loader.prepare()
+    timer4.add("pose sweep", t)
     n_val = n_val_images = 0
     for epoch in range(2):
+        t = timer4.mark()
         loader.prepare()
         loader.prepare_val()
+        timer4.add("pose sweep", t)
         res = val_epoch(loader, arch, criterion, evaluator, timer4)
         n_val, n_val_images = n_val + res["batches"], n_val_images + res["images"]
         loader.step_eval(epoch, evaluator)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches4 = read_counts()
     check(n_val == 16, f"expected 16 val batches, ran {n_val}")
-    check(raster_uv.launches == n_val and raster_rgb.launches == 0,
-          f"phase 4 launches uv {raster_uv.launches} rgb {raster_rgb.launches}, "
-          f"expected {n_val} and 0")
+    check(launches4 == {"raster_uv": n_val, "raster_rgb": 0, "raster_rgb_binned": 0},
+          f"phase 4 launches {launches4}, expected {n_val} uv and no other")
+    check_refined(records4, "val slice", torch)
     vm = next(m for m in evaluator.metrics_list if isinstance(m, ValMetricMean3DEPE2))
     avg, seen = vm.get_averaged_maps()
     check(int(seen.sum()) > 0 and bool(torch.isfinite(avg[seen]).all()),
@@ -257,14 +453,14 @@ def main():
     check(float(w.min()) >= 0.1 and float(w.max()) <= 10.0, "sample_weight_map left [0.1, 10]")
     val_s = sum(timer4.seconds[s] for s in ("synth batch", "forward", "metric+mining"))
     print(f"val slice ({card}): 2 epochs in {wall:.2f} s, {n_val_images} val images, "
-          f"{n_val_images / val_s:.2f} img/s over the val pass (bf16); uv launches "
-          f"{raster_uv.launches}; {int(seen.sum())} triplets seen, mean EPE "
-          f"{float(avg[seen].mean()):.2f} mm", flush=True)
-    for stage in ("synth batch", "forward", "metric+mining"):
+          f"{n_val_images / val_s:.2f} img/s over the val pass (bf16); launches {launches4}; "
+          f"{int(seen.sum())} triplets seen, mean EPE {float(avg[seen].mean()):.2f} mm",
+          flush=True)
+    for stage in ("pose sweep", "synth batch", "forward", "metric+mining"):
         n = max(timer4.calls[stage], 1)
         print(f"  stage {stage}: {timer4.seconds[stage] * 1e3 / n:.3f} ms per call over "
               f"{timer4.calls[stage]} calls")
-    del loader, arch, evaluator
+    del loader, arch, evaluator, records4
 
     # ---- 5. the train pass at full width ----
     cfg["DATASET"]["TRAIN"] = dict(synth_cfg, N_SAMPLES=640)
@@ -273,13 +469,17 @@ def main():
         torch.manual_seed(1)
         init = build_arch(cfg["ARCH"], cfg["DATA_PRESET"]).model_list[0].state_dict()
     init = {k: v.clone() for k, v in init.items()}
-    raster_uv.launches = raster_rgb.launches = 0
+    records5, restore = spy_refiners(loader_module)
+    zero_counts()
     timer5 = StageTimer(dev)
     t0 = time.perf_counter()
-    out = run(cfg, epochs=2, device="cuda", model_state=init, timer=timer5)
+    try:
+        out = run(cfg, epochs=2, device="cuda", model_state=init, timer=timer5)
+    finally:
+        restore()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"raster_uv": raster_uv.launches, "raster_rgb": raster_rgb.launches}
+    launches = read_counts()
     hist, loader = out["history"], out["loader"]
     steps = sum(r["train"]["steps"] for r in hist)
     val_batches = sum(r.get("val", {}).get("batches", 0) for r in hist)
@@ -290,6 +490,8 @@ def main():
           f"rgb raster launched {launches['raster_rgb']} times, expected 40")
     check(launches["raster_uv"] == steps + val_batches,
           f"uv raster launched {launches['raster_uv']} times, expected {steps + val_batches}")
+    check(launches["raster_rgb_binned"] == 0, "the train pass launched the binned raster")
+    check_refined(records5, "train slice", torch)
     losses = [v for r in hist for v in r["train"]["final_loss"]]
     check(all(math.isfinite(v) for v in losses), f"non-finite train loss: {losses}")
     for r in hist:
@@ -345,13 +547,37 @@ def main():
         n = max(timer5.calls[stage], 1)
         print(f"  stage {stage}: {secs[stage] * 1e3:.2f} ms total, "
               f"{secs[stage] * 1e3 / n:.3f} ms per call over {timer5.calls[stage]} calls")
+    del out, loader, model, final, records5, real, synth, batch, masked
+
+    # ---- 6. the on-chip parity gate (the path of B3) ----
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = chip_parity.run_all(device=dev)
+    except chip_parity.ParityError as e:
+        fail(f"chip_parity: {e}")
+    torch.cuda.synchronize()
+    launches6 = read_counts()
+    check(all(n >= 1 for n in launches6.values()),
+          f"chip_parity did not launch every kernel: {launches6}")
+    print(f"chip parity ({card}): CHIP PARITY OK ({time.perf_counter() - t0:.1f}s): {summary}; "
+          f"launches {launches6}", flush=True)
+
+    # ---- 7. checkpoint and resume ----
+    ckpt_cfg = copy.deepcopy(cfg)
+    ckpt_cfg["DATASET"]["TRAIN"]["N_SAMPLES"] = 160
+    ckpt_cfg["MANAGER"]["VAL_LEN"] = 128
+    zero_counts()
+    line = checkpoint_resume(ckpt_cfg, init, "cuda")
+    print(f"checkpoint/resume ({card}): {line}; launches {read_counts()}", flush=True)
 
     rows = []
-    for name, src_line in (("raster_uv", 222), ("raster_rgb", 201)):
+    for name, src_line, counts in (("raster_uv", 222, launches), ("raster_rgb", 201, launches),
+                                   ("raster_rgb_binned", 272, launches6)):
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": "artiboost_torch/csrc/raster.cu",
                      "replaces": f"artiboost_tpu/ops/rasterizer_pallas.py:{src_line}",
-                     "launches": launches[name], "max_abs_err": k["max_abs_err"],
+                     "launches": counts[name], "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,8 @@
 """Package hygiene of the port: ``artiboost_torch`` and ``chip_smoke.py``
 never import JAX, flax or the JAX package (statically, and by importing
 every submodule in a process where those imports fail), and the entry
-point refuses to fall back to the CPU quietly."""
+points (``train``, ``chip_parity``) refuse to fall back to the CPU
+quietly."""
 import ast
 import os
 import subprocess
@@ -53,7 +54,7 @@ def test_every_submodule_imports_with_jax_blocked():
 
 
 def test_entry_point_refuses_cpu_fallback(monkeypatch):
-    from artiboost_torch import train
+    from artiboost_torch import chip_parity, train
     from artiboost_torch.artiboost.loader import ArtiBoostLoader
     from artiboost_torch.artiboost.synth_batch import SynthBatch, SynthConfig
     from artiboost_torch.criterions import build_criterion
@@ -69,6 +70,10 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--cfg", str(cfg_path), "--epochs", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chip_parity.main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chip_parity.run_all()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ArtiBoostLoader(cfg=train.slice_config(load_config(str(cfg_path))), batch_size=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):

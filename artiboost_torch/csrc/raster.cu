@@ -81,16 +81,18 @@ struct Winner {
 // Pass 1 for the P pixels (x[j], y[j]) of this thread over the chunks
 // [c_start, c_end) of one image (or band). Every thread of the block must
 // call it: it stages each chunk in s_geom between two barriers. Each
-// pixel's keys are visited in chunk and lane order, whatever P.
-template <int P>
+// pixel's keys are visited in chunk and lane order, whatever P. NT is the
+// block size when it is fixed at compile time (B1, B2), else 0 (B3).
+template <int P, int NT>
 __device__ __forceinline__ void nearest_face(float (*s_geom)[kLane], const float* geom_b,
                                              int c_start, int c_end, const float (&x)[P],
                                              const float (&y)[P], Winner (&w)[P]) {
+  const int n_threads = NT > 0 ? NT : (int)blockDim.x;
 #pragma unroll
   for (int j = 0; j < P; ++j) w[j] = Winner{0, 0};
   for (int c = c_start; c < c_end; ++c) {
     const float* g = geom_b + (size_t)c * kRows * kLane;
-    for (int i = threadIdx.x; i < kGeomRows * kLane; i += blockDim.x) {
+    for (int i = threadIdx.x; i < kGeomRows * kLane; i += n_threads) {
       s_geom[i / kLane][i % kLane] = g[i];
     }
     __syncthreads();
@@ -138,8 +140,9 @@ __global__ void raster_uv_kernel(const int* __restrict__ ranges,   // (B, T, 2)
   const float xs[1] = {(float)(pix % width) + 0.5f};
   const float ys[1] = {(float)(pix / width) + 0.5f};
   Winner ws[1];
-  nearest_face<1>(s_geom, geom + (size_t)b * n_chunks * kRows * kLane,
-                  ranges[(b * n_tiles + t) * 2], ranges[(b * n_tiles + t) * 2 + 1], xs, ys, ws);
+  nearest_face<1, kTilePx>(s_geom, geom + (size_t)b * n_chunks * kRows * kLane,
+                           ranges[(b * n_tiles + t) * 2],
+                           ranges[(b * n_tiles + t) * 2 + 1], xs, ys, ws);
   if (pix >= n_pix) return;
 
   const float x = xs[0], y = ys[0];
@@ -206,8 +209,9 @@ __global__ void raster_rgb_kernel(const int* __restrict__ ranges,   // (B, T, 2)
   const float xs[1] = {(float)(pix % width) + 0.5f};
   const float ys[1] = {(float)(pix / width) + 0.5f};
   Winner ws[1];
-  nearest_face<1>(s_geom, geom + (size_t)b * n_chunks * kRows * kLane,
-                  ranges[(b * n_tiles + t) * 2], ranges[(b * n_tiles + t) * 2 + 1], xs, ys, ws);
+  nearest_face<1, kTilePx>(s_geom, geom + (size_t)b * n_chunks * kRows * kLane,
+                           ranges[(b * n_tiles + t) * 2],
+                           ranges[(b * n_tiles + t) * 2 + 1], xs, ys, ws);
   if (pix >= n_pix) return;
   write_rgb(col + (size_t)b * n_chunks * kRows * kLane, ws[0], xs[0], ys[0], rgb, depth_out,
             (size_t)b * n_pix + pix);
@@ -243,7 +247,7 @@ __global__ void raster_rgb_binned_kernel(const int* __restrict__ ranges,   // (B
   const size_t band_planes = (size_t)n_chunks * kRows * kLane;
   const int* r = ranges + (band * n_ytiles + ty) * 2;
   Winner ws[P];
-  nearest_face<P>(s_geom, geom + band * band_planes, r[0], r[1], xs, ys, ws);
+  nearest_face<P, 0>(s_geom, geom + band * band_planes, r[0], r[1], xs, ys, ws);
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int p = threadIdx.x + j * blockDim.x;

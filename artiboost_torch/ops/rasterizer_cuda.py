@@ -382,35 +382,28 @@ class RasterLibrary:
         return self._lib
 
 
-def _check_inputs(name: str, ranges, geom, col, height: int, width: int):
-    B, n_tiles, two = ranges.shape
-    expect = (B, geom.shape[1], N_ROWS, LANE)
-    if (two != 2 or tuple(geom.shape) != expect or tuple(col.shape) != expect
+def _check_inputs(name: str, ranges, geom, col, height: int, width: int,
+                  tile: Tuple[int, ...] = ()):
+    """What a kernel wrapper refuses before a launch. ``tile`` () is the
+    1-D layout, (xbin_w, tile_rows) the binned one (``RasterInputs``)."""
+    lead = "(B, NB, YT" if tile else "(B, T"
+    if ranges.dim() != (4 if tile else 3) or geom.dim() != ranges.dim() + 1:
+        raise ValueError(f"{name}: ranges {lead}, 2) and geom/col with one more axis")
+    expect = tuple(ranges.shape[:-2]) + (geom.shape[-3], N_ROWS, LANE)
+    if (ranges.shape[-1] != 2 or tuple(geom.shape) != expect or tuple(col.shape) != expect
             or ranges.dtype != torch.int32 or geom.dtype != torch.float32
             or col.dtype != torch.float32
             or not all(t.is_contiguous() and t.device == geom.device
                        for t in (ranges, geom, col))):
-        raise ValueError(f"{name}: ranges (B, T, 2) int32 and geom/col "
-                         f"{expect} float32, contiguous, on one CUDA device")
-    if n_tiles * TILE_PX < height * width:
-        raise ValueError(f"{name}: the range table covers fewer pixels than the image")
-
-
-def _check_binned_inputs(name: str, ranges, geom, col, height: int, width: int, xbin_w: int,
-                         tile_rows: int):
-    if ranges.dim() != 4 or geom.dim() != 5:
-        raise ValueError(f"{name}: ranges (B, NB, YT, 2) and geom/col (B, NB, NC, 16, 128)")
-    B, n_bands, n_ytiles, two = ranges.shape
-    expect = (B, n_bands, geom.shape[2], N_ROWS, LANE)
-    if (two != 2 or tuple(geom.shape) != expect or tuple(col.shape) != expect
-            or ranges.dtype != torch.int32 or geom.dtype != torch.float32
-            or col.dtype != torch.float32
-            or not all(t.is_contiguous() and t.device == geom.device
-                       for t in (ranges, geom, col))):
-        raise ValueError(f"{name}: ranges (B, NB, YT, 2) int32 and geom/col {expect} "
+        raise ValueError(f"{name}: ranges {lead}, 2) int32 and geom/col {expect} "
                          "float32, contiguous, on one CUDA device")
-    if (xbin_w < 1 or tile_rows < 1 or n_bands != -(-width // xbin_w)
-            or n_ytiles != -(-height // tile_rows)):
+    if not tile:
+        if ranges.shape[1] * TILE_PX < height * width:
+            raise ValueError(f"{name}: the range table covers fewer pixels than the image")
+        return
+    xbin_w, tile_rows = tile
+    if (xbin_w < 1 or tile_rows < 1 or ranges.shape[1] != -(-width // xbin_w)
+            or ranges.shape[2] != -(-height // tile_rows)):
         raise ValueError(f"{name}: ranges {tuple(ranges.shape)} do not tile a "
                          f"{height}x{width} image in {tile_rows}x{xbin_w} tiles")
     if xbin_w * tile_rows > MAX_BINNED_TILE_PX:
@@ -477,7 +470,7 @@ class BinnedRasterKernel(RasterKernel):
             return self.twin(ranges, geom, col, height, width, xbin_w, tile_rows)
         if geom.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {geom.device}")
-        _check_binned_inputs(self.name, ranges, geom, col, height, width, xbin_w, tile_rows)
+        _check_inputs(self.name, ranges, geom, col, height, width, (xbin_w, tile_rows))
         B, n_bands, n_ytiles, _ = ranges.shape
         lib = self.build()
         n_pix = height * width

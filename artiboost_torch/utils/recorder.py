@@ -107,7 +107,7 @@ def _save_npz(path: str, state: Dict) -> None:
 
 
 class Recorder:
-    def __init__(self, exp_id: str, cfg: Dict, root: str = "exp", eval_only: bool = False,
+    def __init__(self, exp_id: str, cfg: Dict, root: str = "exp",
                  resume_path: Optional[str] = None, timestamp: Optional[str] = None,
                  allow_dirty: bool = False):
         """A named experiment (any ``exp_id`` but ``default`` and
@@ -115,7 +115,7 @@ class Recorder:
         without a commit it warns. ``resume_path`` reuses an experiment
         directory and keeps its ``dump_cfg.yaml``."""
         self.exp_id, self.cfg = exp_id, cfg
-        if not eval_only and exp_id not in ("default", "smoke"):
+        if exp_id not in ("default", "smoke"):
             commit = _git_commit()
             if commit is None:
                 logger.warning(f"exp '{exp_id}' started without a git commit: the run "
@@ -131,8 +131,7 @@ class Recorder:
             else:
                 logger.info(f"exp '{exp_id}' @ git {commit[:12]}")
         ts = timestamp or time.strftime("%Y_%m%d_%H%M_%S")
-        self.dump_path = resume_path or os.path.join(
-            root, f"{'eval_' if eval_only else ''}{exp_id}_{ts}")
+        self.dump_path = resume_path or os.path.join(root, f"{exp_id}_{ts}")
         self.ckpt_dir = os.path.abspath(os.path.join(self.dump_path, "checkpoints"))
         self.eval_dir = os.path.join(self.dump_path, "evaluations")
         os.makedirs(self.ckpt_dir, exist_ok=True)

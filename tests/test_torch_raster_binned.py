@@ -148,15 +148,19 @@ def test_binned_kernel_input_checks():
     c = CASES["ragged_16x5"]
     args = [torch.from_numpy(c[k]) for k in ("verts", "rgb", "faces", "valid")]
     inp = rc.prepare_raster_binned(*args, 24, 40, 16, 5)
-    rc._check_binned_inputs("b3", inp.ranges, inp.geom, inp.col, 24, 40, 16, 5)
+    rc._check_inputs("b3", inp.ranges, inp.geom, inp.col, 24, 40, (16, 5))
     with pytest.raises(ValueError, match="do not tile"):
-        rc._check_binned_inputs("b3", inp.ranges, inp.geom, inp.col, 24, 40, 16, 4)
+        rc._check_inputs("b3", inp.ranges, inp.geom, inp.col, 24, 40, (16, 4))
     with pytest.raises(ValueError, match="int32"):
-        rc._check_binned_inputs("b3", inp.ranges.long(), inp.geom, inp.col, 24, 40, 16, 5)
+        rc._check_inputs("b3", inp.ranges.long(), inp.geom, inp.col, 24, 40, (16, 5))
+    one = rc.prepare_raster(*args, 24, 40)  # the 1-D layout takes no tile
+    rc._check_inputs("b2", one.ranges, one.geom, one.col, 24, 40)
+    with pytest.raises(ValueError, match="one more axis"):
+        rc._check_inputs("b2", inp.ranges, inp.geom, inp.col, 24, 40)
     big = rc.prepare_raster_binned(*args, 24, 300, 128, 17)
     assert rc.MAX_BINNED_TILE_PX == 2048 and 128 * 17 > 2048
     with pytest.raises(ValueError, match="more than 2048"):
-        rc._check_binned_inputs("b3", big.ranges, big.geom, big.col, 24, 300, 128, 17)
+        rc._check_inputs("b3", big.ranges, big.geom, big.col, 24, 300, (128, 17))
 
 
 @pytest.mark.parametrize("seed,face_chunk,row_chunk", [(0, 32, 8), (2, 32, 8), (1, 50, 8)])

@@ -36,6 +36,18 @@ from artiboost_torch.ops.rasterizer import rasterize_batch
 NO_FMA_ENV = {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_cpu_max_isa=AVX"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per process while this file runs: the suite runs
+    several workers on the host's cores, and a per-op thread pool in each
+    of them oversubscribes the cores and makes these small ops several
+    times slower. Every comparison here is made at one thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cases():
     rng = np.random.RandomState(5)
     square = random_scene(rng, 2, 40, 60, 32, 32)

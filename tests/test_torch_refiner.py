@@ -44,6 +44,18 @@ from test_torch_engine import OBJS, SCRAM, jax_view_scram_draws
 HO = {"TYPE": "hand_obj", "PRETRAINED": "assets/GrabNet/refinenet.pt", "ITERS": 3}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per process while this file runs: the suite runs
+    several workers on the host's cores, and a per-op thread pool in each
+    of them oversubscribes the cores and makes these small ops several
+    times slower. Every comparison here is made at one thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_params():
     from artiboost_tpu.utils.misc import asset_path
 

@@ -9,7 +9,7 @@ other, on the JAX gate's scenes and at its thresholds.
     and shade within 1e-3, 3e-3, 3e-3 and 2e-2 on > 99.5 % of pixels, and
     page == 5 on every hit;
   * ``check_binned`` (:107-114): B3 at (xbin_w, tile_rows) = (32, 8)
-    against B2, atol 1e-6;
+    against B2, atol 1e-6, and against its plain twin bit for bit;
   * ``check_production_lod_uv`` (:117-148): one synth batch of the released
     config (B = 8, CONFIG_LEN_TRAIN and OPG_BATCH_SIZE 16, loader seed 3,
     synth draws from seed 11) rendered once through the kernels and once
@@ -34,7 +34,13 @@ import numpy as np
 import torch
 
 from artiboost_torch.ops.rasterizer import rasterize_batch
-from artiboost_torch.ops.rasterizer_cuda import rasterize_batch_rgb, rasterize_batch_uv
+from artiboost_torch.ops.rasterizer_cuda import (
+    finish_rgb_raster,
+    prepare_raster_binned,
+    raster_rgb_binned,
+    rasterize_batch_rgb,
+    rasterize_batch_uv,
+)
 from artiboost_torch.utils.misc import resolve_device
 
 H = W = 64
@@ -107,7 +113,13 @@ def check_binned(device) -> str:
     _require(np.allclose(d, d_ref, atol=1e-6) and np.allclose(a, a_ref, atol=1e-6),
              f"binned vs 1-D: depth {np.abs(d - d_ref).max()}, rgb {np.abs(a - a_ref).max()}")
     n_diff = int(((d != d_ref) | np.any(a != a_ref, axis=-1)).sum())
-    return f"binned==1d ({n_diff} px differ)"
+    # the same launch against the binned kernel's plain twin, bit for bit
+    inp = prepare_raster_binned(verts, attrs, faces, None, H, W, 32, 8)
+    a_twin, d_twin = _np(*finish_rgb_raster(inp, *raster_rgb_binned.twin(*inp.args())))
+    _require(np.array_equal(a, a_twin) and np.array_equal(d, d_twin),
+             f"binned kernel vs its twin: depth {np.abs(d - d_twin).max()}, "
+             f"rgb {np.abs(a - a_twin).max()}")
+    return f"binned==1d ({n_diff} px differ), binned==twin"
 
 
 def check_production_lod_uv(device, B: int = 8) -> str:

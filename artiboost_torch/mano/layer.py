@@ -8,7 +8,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from artiboost_torch.mano.model import JOINT_REORDER, NUM_JOINTS, TIP_VERT_IDS, ManoModel
-from artiboost_torch.utils.transform import aa_to_rotmat, rotmat_to_aa
+from artiboost_torch.utils.transform import aa_to_rotmat
 
 _LEV1 = [1, 4, 7, 10, 13]
 _LEV2 = [2, 5, 8, 11, 14]
@@ -19,7 +19,7 @@ class ManoOutput(NamedTuple):
     verts: torch.Tensor           # (B, 778, 3)
     joints: torch.Tensor          # (B, 21, 3) conventional order
     transforms_abs: torch.Tensor  # (B, 16, 4, 4) MANO-native order
-    full_poses: torch.Tensor      # (B, 48)
+    full_poses: Optional[torch.Tensor]  # (B, 48); None from mano_forward_rotmat
 
 
 def _with_zeros_row(rt: torch.Tensor) -> torch.Tensor:
@@ -44,12 +44,13 @@ def mano_forward_rotmat(model: ManoModel, rots: torch.Tensor, betas: torch.Tenso
                         center_idx: Optional[int] = None) -> ManoOutput:
     """FK straight from (B, 16, 3, 3) joint rotations, for loops over a 6D
     or rotmat pose: ``rotmat_to_aa``'s backward is singular at angle 0 and
-    pi. ``full_poses`` is reported as axis-angle, detached."""
-    aa = rotmat_to_aa(rots).reshape(rots.shape[0], 48).detach()
-    return _mano_forward_impl(model, rots, aa, betas, center_idx)
+    pi. ``full_poses`` is None: JAX reports the axis-angle pose here, but
+    its jit drops that conversion when nothing reads it, and no caller
+    does (``utils.transform.rotmat_to_aa`` gives it)."""
+    return _mano_forward_impl(model, rots, None, betas, center_idx)
 
 
-def _mano_forward_impl(model: ManoModel, rots: torch.Tensor, full_pose: torch.Tensor,
+def _mano_forward_impl(model: ManoModel, rots: torch.Tensor, full_pose: Optional[torch.Tensor],
                        betas: torch.Tensor, center_idx: Optional[int]) -> ManoOutput:
     B = rots.shape[0]
     eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
@@ -70,8 +71,7 @@ def _mano_forward_impl(model: ManoModel, rots: torch.Tensor, full_pose: torch.Te
     lev2 = level(lev1, _LEV2, _LEV1)
     lev3 = level(lev2, _LEV3, _LEV2)
 
-    transforms_abs = torch.zeros((B, NUM_JOINTS, 4, 4), dtype=full_pose.dtype,
-                                 device=full_pose.device)
+    transforms_abs = torch.zeros((B, NUM_JOINTS, 4, 4), dtype=rots.dtype, device=rots.device)
     transforms_abs[:, 0] = root_tf
     transforms_abs[:, _LEV1] = lev1
     transforms_abs[:, _LEV2] = lev2

@@ -414,7 +414,10 @@ def _check_inputs(name: str, ranges, geom, col, height: int, width: int,
 class RasterKernel:
     """ctypes wrapper of one launch function of ``raster.cu``; ``launches``
     counts kernel launches (and nothing else). ``twin`` is the plain
-    PyTorch version the wrapper runs for CPU tensors."""
+    PyTorch version the wrapper runs for CPU tensors. The binned kernel
+    takes the tile (xbin_w, tile_rows) after the image size, as
+    ``RasterInputs.args()`` gives it; its tile may hold at most
+    MAX_BINNED_TILE_PX pixels."""
 
     def __init__(self, name: str, library: RasterLibrary, twin):
         self.name, self.library, self.twin = name, library, twin
@@ -428,29 +431,37 @@ class RasterKernel:
         return self.library.get()
 
     def __call__(self, ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                 height: int, width: int) -> Tuple[torch.Tensor, ...]:
+                 height: int, width: int, *tile: int) -> Tuple[torch.Tensor, ...]:
+        if len(tile) != (2 if self.name == "raster_rgb_binned" else 0):
+            raise ValueError(f"{self.name}: got tile {tile}; only raster_rgb_binned takes "
+                             "(xbin_w, tile_rows)")
         if geom.device.type == "cpu":
-            return self.twin(ranges, geom, col, height, width)
+            return self.twin(ranges, geom, col, height, width, *tile)
         if geom.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {geom.device}")
-        _check_inputs(self.name, ranges, geom, col, height, width)
+        _check_inputs(self.name, ranges, geom, col, height, width, tile)
         lib = self.build()
-        B, n_tiles, _ = ranges.shape
-        n_pix = height * width
+        B, n_pix = ranges.shape[0], height * width
         f32 = dict(dtype=torch.float32, device=geom.device)
         stream = torch.cuda.current_stream(geom.device).cuda_stream
         head = (ranges.data_ptr(), geom.data_ptr(), col.data_ptr())
-        tail = (B, geom.shape[1], n_tiles, n_pix, width, stream)
         if self.name == "raster_uv":
             quv, qsp, depth = (torch.empty((B, n_pix), **f32) for _ in range(3))
             win = torch.empty((B, n_pix), dtype=torch.int32, device=geom.device)
             err = lib.raster_uv_launch(*head, quv.data_ptr(), qsp.data_ptr(), win.data_ptr(),
-                                       depth.data_ptr(), *tail)
+                                       depth.data_ptr(), B, geom.shape[1], ranges.shape[1],
+                                       n_pix, width, stream)
             out = (quv, qsp, win, depth)
         else:
             rgb = torch.empty((B, n_pix, 3), **f32)
             depth = torch.empty((B, n_pix), **f32)
-            err = lib.raster_rgb_launch(*head, rgb.data_ptr(), depth.data_ptr(), *tail)
+            head += (rgb.data_ptr(), depth.data_ptr())
+            if self.name == "raster_rgb":
+                err = lib.raster_rgb_launch(*head, B, geom.shape[1], ranges.shape[1], n_pix,
+                                            width, stream)
+            else:
+                err = lib.raster_rgb_binned_launch(*head, B, ranges.shape[1], ranges.shape[2],
+                                                   geom.shape[2], height, width, *tile, stream)
             out = (rgb, depth)
         if err != 0:
             raise RuntimeError(f"{self.name}_launch failed: CUDA error {err}")
@@ -458,39 +469,11 @@ class RasterKernel:
         return out
 
 
-class BinnedRasterKernel(RasterKernel):
-    """The x-binned Gouraud kernel (B3) on the inputs of
-    ``prepare_raster_binned``; its tile of tile_rows x xbin_w pixels may
-    hold at most MAX_BINNED_TILE_PX."""
-
-    def __call__(self, ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                 height: int, width: int, xbin_w: int,
-                 tile_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        if geom.device.type == "cpu":
-            return self.twin(ranges, geom, col, height, width, xbin_w, tile_rows)
-        if geom.device.type != "cuda":
-            raise ValueError(f"{self.name}: unsupported device {geom.device}")
-        _check_inputs(self.name, ranges, geom, col, height, width, (xbin_w, tile_rows))
-        B, n_bands, n_ytiles, _ = ranges.shape
-        lib = self.build()
-        n_pix = height * width
-        rgb = torch.empty((B, n_pix, 3), dtype=torch.float32, device=geom.device)
-        depth = torch.empty((B, n_pix), dtype=torch.float32, device=geom.device)
-        err = lib.raster_rgb_binned_launch(
-            ranges.data_ptr(), geom.data_ptr(), col.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
-            B, n_bands, n_ytiles, geom.shape[2], height, width, xbin_w, tile_rows,
-            torch.cuda.current_stream(geom.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name}_launch failed: CUDA error {err}")
-        self.launches += 1
-        return rgb, depth
-
-
 _library = RasterLibrary()
 raster_uv = RasterKernel("raster_uv", _library, rasterize_batch_uv_torch)
 raster_rgb = RasterKernel("raster_rgb", _library, rasterize_batch_rgb_torch)
-raster_rgb_binned = BinnedRasterKernel("raster_rgb_binned", _library,
-                                       rasterize_batch_rgb_binned_torch)
+raster_rgb_binned = RasterKernel("raster_rgb_binned", _library,
+                                 rasterize_batch_rgb_binned_torch)
 
 
 def finish_uv_raster(inp: RasterInputs, quv, qsp, win_sorted, depth):

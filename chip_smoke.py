@@ -10,8 +10,9 @@ Phases, each fatal on failure:
      the seeded scenes of ``artiboost_torch/ops/raster_scenes.py`` (random
      triangles at F = 60 and F = 700, invalid faces, a two-triangle depth
      tie) with back-face culling off and on, B3 at (xbin_w, tile_rows) =
-     (16, 8), (8, 4) and (16, 5); the uv kernel on one val batch of the
-     main path (B = 128 at 112x112); the rgb kernel and B3 at (64, 8) and
+     (16, 8), (8, 4), (16, 5) and (32, 8); B3 on the parity gate's binned
+     scene at its (32, 8); the uv kernel on one val batch of the main path
+     (B = 128 at 112x112); the rgb kernel and B3 at (64, 8), (64, 16) and
      (128, 16) on one SyntheticHO render chunk at full width (B = 16 at
      512x512, hand plus an object of up to 1024 faces), B3 also against B2
      there (depth within 1e-6; colour equal but at depth-key ties, which
@@ -55,8 +56,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # non-tensor FP32, H100 SXM data sheet
 RASTER_OPS_PER_LANE = 25        # pass-1 operations per (pixel, face)
-BINNED_CHECK_TILES = ((16, 8), (8, 4), (16, 5))   # (xbin_w, tile_rows)
-BINNED_FULL_TILES = ((64, 8), (128, 16))
+# (xbin_w, tile_rows). A tile of n pixels launches min(256, n rounded up to
+# a warp) threads, each holding P = ceil(n / threads) pixels: the check
+# tiles launch 128, 32, 96 and 256 threads at P = 1; the full-width tiles
+# are P = 2, 4 and 8, every instantiation of the kernel.
+BINNED_CHECK_TILES = ((16, 8), (8, 4), (16, 5), (32, 8))
+BINNED_FULL_TILES = ((64, 8), (64, 16), (128, 16))
 
 
 def fail(msg: str):
@@ -363,6 +368,11 @@ def main():
                      prepare_raster_binned(t["verts"], rgb, t["faces"], t["valid"], sc["H"],
                                            sc["W"], xbin_w, tile_rows, cull_backfaces=cull),
                      f"{name} cull={cull} tile {tile_rows}x{xbin_w}")
+    # the parity gate's own binned input, at its launch configuration
+    verts, attrs, faces, _ = chip_parity._scene(dev, seed=3)
+    hold(raster_rgb_binned,
+         prepare_raster_binned(verts, attrs, faces, None, chip_parity.H, chip_parity.W, 32, 8),
+         f"parity-gate scene (seed 3, B=2 {chip_parity.H}x{chip_parity.W} F=160) tile 8x32")
 
     cfg = full_width_config()
     val_cfg = dict(cfg, MANAGER=dict(cfg["MANAGER"], VAL_LEN=8 * 128))

@@ -8,7 +8,8 @@ Tolerances:
     Pallas interpret mode: bit equality on rgb and depth. The JAX side runs
     in a subprocess with ``--xla_cpu_max_isa=AVX``, as in
     ``tests/test_torch_raster.py``: without FMA instructions XLA rounds
-    a*b+c twice, as the kernel and its twin do;
+    a*b+c twice, as the kernel and its twin do. It starts with the file and
+    runs beside the file's other tests, and the comparison comes last;
   * the binned twin against the 1-D twin: atol 1e-6, the JAX package's
     own bound for that pair (``tests/test_rasterizer_pallas.py:97-98``);
     the per-band sort changes a face's chunk and lane, and so the low 7
@@ -57,39 +58,65 @@ def _cases():
     for name, sc in raster_check_scenes().items():
         for cull in (False, True):
             cases[f"{name}_cull{int(cull)}_16x8"] = (sc, cull, 16, 8)
-    cases["multi_cull0_8x4"] = (raster_check_scenes()["multi"], False, 8, 4)
     return {name: dict(sc, rgb=rgb_attrs(sc), cull=cull, xbin_w=xw, tile_rows=tr)
             for name, (sc, cull, xw, tr) in cases.items()}
 
 
-CASES = _cases()
+CASES = _cases()  # each held bit for bit against the JAX binned raster
+# held against the 1-D twin only
+CASES_1D = dict(CASES, multi_cull0_8x4=dict(CASES["multi_cull0_16x8"], xbin_w=8, tile_rows=4))
 
 
-def _jax_reference(cases, path_out):
-    """Subprocess body: the JAX binned raster in interpret mode."""
-    import jax.numpy as jnp
+# The JAX side in a fresh process that imports JAX and the JAX raster only
+# (see the module docstring): argv = cases npz, output npz.
+_JAX_REFERENCE = """
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from artiboost_tpu.ops.rasterizer_pallas import rasterize_batch_pallas
 
-    from artiboost_tpu.ops.rasterizer_pallas import rasterize_batch_pallas
+cases, out = np.load(sys.argv[1]), {}
+for name in sorted({k.split("/")[0] for k in cases.files}):
+    h, w, cull, xbin_w, tile_rows = (int(v) for v in cases[f"{name}/shape"])
+    rgb, depth = rasterize_batch_pallas(
+        *(jnp.asarray(cases[f"{name}/{k}"]) for k in ("verts", "rgb", "faces", "valid")),
+        h, w, cull_backfaces=bool(cull), xbin_w=xbin_w, tile_rows=tile_rows)
+    out[f"{name}/rgb"], out[f"{name}/depth"] = np.asarray(rgb), np.asarray(depth)
+np.savez(sys.argv[2], **out)
+"""
 
-    out = {}
-    for name, c in cases.items():
-        rgb, depth = rasterize_batch_pallas(
-            *(jnp.asarray(c[k]) for k in ("verts", "rgb", "faces", "valid")), c["H"], c["W"],
-            cull_backfaces=c["cull"], xbin_w=c["xbin_w"], tile_rows=c["tile_rows"])
-        out[f"{name}/rgb"], out[f"{name}/depth"] = np.asarray(rgb), np.asarray(depth)
-    np.savez(path_out, **out)
 
-
-@pytest.fixture(scope="module")
-def jax_ref(tmp_path_factory):
-    out = tmp_path_factory.mktemp("raster_binned_ref") / "ref.npz"
+@pytest.fixture(scope="module", autouse=True)
+def _jax_reference_run(tmp_path_factory):
+    """Starts the JAX reference as the file starts, so that it runs beside
+    the file's other tests; ``jax_ref`` waits for it."""
+    d = tmp_path_factory.mktemp("raster_binned_ref")
+    arrays = {}
+    for name, c in CASES.items():
+        arrays.update({f"{name}/{k}": c[k] for k in ("verts", "rgb", "faces", "valid")})
+        arrays[f"{name}/shape"] = np.array([c["H"], c["W"], c["cull"], c["xbin_w"],
+                                            c["tile_rows"]])
+    np.savez(d / "cases.npz", **arrays)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, **NO_FMA_ENV,
                PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
-    res = subprocess.run([sys.executable, __file__, str(out)], env=env, capture_output=True,
-                         text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-4000:]
-    with np.load(out) as z:
+    with open(d / "stderr.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", _JAX_REFERENCE, str(d / "cases.npz"),
+                                 str(d / "ref.npz")], env=env, stdout=subprocess.DEVNULL,
+                                stderr=err)
+    yield proc, d
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def jax_ref(_jax_reference_run):
+    proc, d = _jax_reference_run
+    assert proc.wait(timeout=600) == 0, (d / "stderr.txt").read_text()[-4000:]
+    with np.load(d / "ref.npz") as z:
         return {k: z[k] for k in z.files}
 
 
@@ -100,20 +127,9 @@ def _binned(c):
                                   tile_rows=c["tile_rows"])
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_binned_twin_bit_equal_to_jax(jax_ref, name):
-    c = CASES[name]
-    rgb, depth = _binned(c)
-    assert rgb.shape == (c["verts"].shape[0], c["H"], c["W"], 3)
-    np.testing.assert_array_equal(rgb.numpy(), jax_ref[f"{name}/rgb"], err_msg=name)
-    np.testing.assert_array_equal(depth.numpy(), jax_ref[f"{name}/depth"], err_msg=name)
-    hit = depth.numpy() > 0
-    assert hit.any() != name.startswith("tie_cull1")  # both tie triangles are back faces
-
-
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES_1D))
 def test_binned_twin_against_1d_twin(name):
-    c = CASES[name]
+    c = CASES_1D[name]
     rgb, depth = _binned(c)
     rgb1, depth1 = rc.rasterize_batch_rgb(*(torch.from_numpy(c[k]) for k in (
         "verts", "rgb", "faces", "valid")), c["H"], c["W"], cull_backfaces=c["cull"])
@@ -169,6 +185,13 @@ def test_binned_kernel_input_checks():
     rc._check_inputs("b2", one.ranges, one.geom, one.col, 24, 40)
     with pytest.raises(ValueError, match="one more axis"):
         rc._check_inputs("b2", inp.ranges, inp.geom, inp.col, 24, 40)
+    # one wrapper class for the three kernels: only the binned one takes a tile
+    with pytest.raises(ValueError, match="only raster_rgb_binned"):
+        rc.raster_rgb(*inp.args())
+    with pytest.raises(ValueError, match="only raster_rgb_binned"):
+        rc.raster_rgb_binned(*one.args())
+    rgb, depth = rc.raster_rgb_binned(*inp.args())  # on the CPU: the twin
+    assert rgb.shape == (2, 24 * 40, 3) and depth.shape == (2, 24 * 40)
     big = rc.prepare_raster_binned(*args, 24, 300, 128, 17)
     assert rc.MAX_BINNED_TILE_PX == 2048 and 128 * 17 > 2048
     with pytest.raises(ValueError, match="more than 2048"):
@@ -194,12 +217,16 @@ def test_plain_raster_against_jax(seed, face_chunk, row_chunk):
 def test_chip_parity_gate_on_cpu():
     summary = chip_parity.run_all(production=True, device="cpu")
     assert summary.startswith("gouraud_xla") and "binned==1d" in summary
+    assert "binned==twin" in summary
     assert "production_lod_uv bitexact" in summary
 
 
-if __name__ == "__main__":
-    # JAX reference in a fresh process (see the module docstring)
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    _jax_reference(CASES, sys.argv[1])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_binned_twin_bit_equal_to_jax(jax_ref, name):
+    c = CASES[name]
+    rgb, depth = _binned(c)
+    assert rgb.shape == (c["verts"].shape[0], c["H"], c["W"], 3)
+    np.testing.assert_array_equal(rgb.numpy(), jax_ref[f"{name}/rgb"], err_msg=name)
+    np.testing.assert_array_equal(depth.numpy(), jax_ref[f"{name}/depth"], err_msg=name)
+    hit = depth.numpy() > 0
+    assert hit.any() != name.startswith("tie_cull1")  # both tie triangles are back faces

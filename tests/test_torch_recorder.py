@@ -173,7 +173,8 @@ def test_jax_recorder_reads_the_port_artiboost_state(tmp_path):
 def _pure_synth_cfg():
     cfg = load_config(str(REPO / "config" / "synthetic_smoke.yaml"))
     del cfg["DATASET"]["TRAIN"]
-    cfg["MANAGER"].update(CONFIG_LEN_TRAIN=32, VAL_LEN=16)
+    cfg["MANAGER"].update(CONFIG_LEN_TRAIN=8, VAL_LEN=4)
+    cfg["TRAIN"]["BATCH_SIZE"] = 4  # 2 steps and 1 val batch per epoch
     return cfg
 
 

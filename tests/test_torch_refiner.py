@@ -8,12 +8,14 @@ equal indices (the sets are random, so exact ties do not occur). The
 absolute term is two float32 steps of |x|^2 + |y|^2 (~1.5 m^2 at 0.5 m):
 jitted XLA contracts |x|^2 + |y|^2 - 2 x.y into an FMA, and the
 cancellation leaves that rounding as an absolute error (measured
-2.4e-7). RefineNet's deltas at atol 1e-5
-(LayerNorm's variance is summed in another order). The refinement and the
+2.4e-7). FK from rotation matrices at atol 1e-6 (measured 1.8e-7 on the
+transforms, 1.2e-7 on the axis-angle report). RefineNet's deltas at atol
+1e-5 (LayerNorm's variance is summed in another order). The refinement
+(run under jit on the JAX side, as the pose generator runs it) and the
 pose sweep go through FK three times plus the final FK; XLA's sin/cos
 differ from torch's in the last bit (ROADMAP C), and RefineNet amplifies
 the difference through its 778 distance inputs. Measured: the refinement
-1.4e-6 on the axis-angle pose, 1.4e-7 m on the translation, 1.9e-7 m on
+1.8e-6 on the axis-angle pose, 8.9e-8 m on the translation, 2.2e-7 m on
 the joints; the pose sweep 5.3e-6 on the pose and 3.8e-7 m on the
 translation. Both tests hold 1e-5."""
 import jax
@@ -56,6 +58,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module")
+def jax_ho():
+    """The JAX MANO model and its hand_obj refiner on the in-repo weights,
+    built once: what ``build_refiner(HO, ...)`` returns, without the flax
+    init that it runs (and compiles) before it loads them."""
+    jm = j_mano()
+    return jm, j_ref.make_ho_refiner(jm, j_ref.RefineNet(), _jax_params(), n_iters=HO["ITERS"])
+
+
 def _jax_params():
     from artiboost_tpu.utils.misc import asset_path
 
@@ -82,6 +93,27 @@ def test_chamfer_against_jax(masks):
         assert (t[1].numpy()[my == 0] == 0).all() and my[np.arange(3)[:, None], t[2].numpy()].all()
 
 
+def test_mano_forward_rotmat_against_jax():
+    """FK from rotation matrices, as the refiner's loop calls it. The port
+    reports no axis-angle pose there; JAX's, taken by the JAX refiner's jit
+    only to be dropped, equals ``rotmat_to_aa`` of the same matrices."""
+    from artiboost_torch.mano.layer import mano_forward_rotmat as t_fk
+    from artiboost_torch.utils.transform import aa_to_rotmat, rotmat_to_aa
+    from artiboost_tpu.mano.layer import mano_forward_rotmat as j_fk
+
+    rng = np.random.RandomState(4)
+    rots = aa_to_rotmat(torch.from_numpy((rng.randn(5, 16, 3) * 0.4).astype(np.float32)))
+    betas = (rng.randn(5, 10) * 0.5).astype(np.float32)
+    out = t_fk(synthetic_mano_model(device="cpu"), rots, torch.from_numpy(betas))
+    assert out.full_poses is None
+    j = j_fk(j_mano(), jnp.asarray(rots.numpy()), jnp.asarray(betas))
+    for name in ("verts", "joints", "transforms_abs"):
+        np.testing.assert_allclose(getattr(out, name).numpy(), np.asarray(getattr(j, name)),
+                                   atol=1e-6, rtol=0, err_msg=name)
+    np.testing.assert_allclose(rotmat_to_aa(rots).reshape(5, 48).numpy(),
+                               np.asarray(j.full_poses), atol=1e-6, rtol=0)
+
+
 def test_refinenet_forward_against_flax():
     params = _jax_params()
     net = t_ref.RefineNet()
@@ -105,16 +137,18 @@ def _feed(rng, B):
             "hand_shape": (rng.randn(B, 10) * 0.5).astype(np.float32)}
 
 
-def test_ho_refiner_against_jax():
-    jm, tm = j_mano(), synthetic_mano_model(device="cpu")
-    jrefine = j_ref.build_refiner(HO, jm)
+def test_ho_refiner_against_jax(jax_ho):
+    _, jrefine = jax_ho
+    tm = synthetic_mano_model(device="cpu")
     trefine = t_ref.build_refiner(HO, tm, device="cpu")
     rng = np.random.RandomState(2)
     B = 6
     feed = _feed(rng, B)
     oid = rng.randint(0, 4, B)
     jo, to = j_objs(OBJS), synthetic_object_library(OBJS, device="cpu")
-    jout = jrefine({k: jnp.asarray(v) for k, v in feed.items()}, jo.verts[oid], jo.vert_valid[oid])
+    # under jit, as the JAX pose generator runs it
+    jout = jax.jit(jrefine)({k: jnp.asarray(v) for k, v in feed.items()}, jo.verts[oid],
+                            jo.vert_valid[oid])
     tout = trefine({k: torch.from_numpy(v) for k, v in feed.items()},
                    to.verts[torch.from_numpy(oid)], to.vert_valid[torch.from_numpy(oid)])
     moved = np.abs(np.asarray(jout["hand_tsl"]) - feed["hand_tsl"]).max()
@@ -167,11 +201,10 @@ def _flat(tree, prefix=()):
     return out
 
 
-def test_pose_sweep_with_ho_refiner_against_jax():
+def test_pose_sweep_with_ho_refiner_against_jax(jax_ho):
     vcfg_j, vcfg_t = JViewCfg(6, 8), TViewCfg(6, 8)
-    jm, tm = j_mano(), synthetic_mano_model(device="cpu")
-    jgen = j_make_pg(jm, j_objs(OBJS), j_grasps(4, 16), vcfg_j, j_scrambler(SCRAM),
-                     j_ref.build_refiner(HO, jm))
+    (jm, jrefine), tm = jax_ho, synthetic_mano_model(device="cpu")
+    jgen = j_make_pg(jm, j_objs(OBJS), j_grasps(4, 16), vcfg_j, j_scrambler(SCRAM), jrefine)
     tgen = t_make_pg(tm, synthetic_object_library(OBJS, device="cpu"),
                      synthetic_grasp_library(4, 16, device="cpu"), vcfg_t, t_scrambler(SCRAM),
                      t_ref.build_refiner(HO, tm, device="cpu"))

@@ -24,6 +24,12 @@ kernel's:
   * in uv mode the winner id is unsorted back to the caller's face order
     and (page, shade) unpacked (:430-448).
 
+The uv and Gouraud kernels (B1, B2) do not read that 1-D range table: they
+scan 2-D pixel tiles of ``RASTER_TILE`` and read three tables of their own
+(``tile_ranges``, ``chunk_boxes``, ``face_boxes``), which only narrow the
+faces a tile evaluates to those whose pixel box meets it. Their twins read
+the 1-D table, as the JAX kernel does.
+
 On a CPU tensor a kernel wrapper runs its plain twin; on a CUDA tensor it
 launches the kernel or raises. Every a*b+c in the twins is two separately
 rounded torch ops, as in the kernels."""
@@ -42,27 +48,41 @@ _EPS_EDGE = -1e-6
 LANE = 128          # faces per chunk
 N_ROWS = 16         # plane rows per chunk
 _LANE_MASK = 0x7F   # low 7 mantissa bits of the depth key carry the lane id
-TILE_PX = 256       # pixels per tile (kTilePx in raster.cu)
+TILE_PX = 256       # pixels per tile of the 1-D range table (the JAX kernel's tile_px)
 MAX_BINNED_TILE_PX = 2048  # binned tile: 256 threads x kMaxPixPerThread in raster.cu
+RASTER_TILE = (16, 16)  # (tile_w, tile_h) of the uv and Gouraud kernels' 2-D tiles
+RASTER_TILES = ((16, 16), (32, 8), (8, 8))  # the tiles raster.cu instantiates for them
+RASTER_REGION = 8  # each warp of those kernels scans for an 8 x 8 region of its tile (kRegion)
+BOX_LIMIT = 10 ** 9  # boxes are clamped to +-BOX_LIMIT; an empty one is [BOX_LIMIT, -BOX_LIMIT)
 _TWIN_ELEMS = 1 << 24  # bound on the twin's (images, pixels, 128) temporaries
 
 
 class RasterInputs(NamedTuple):
-    """What a kernel reads, plus the sort permutation for the unsort. The
-    binned raster's arrays carry a band axis after the batch axis, and
-    ``tile`` = (xbin_w, tile_rows); the 1-D raster's ``tile`` is ()."""
+    """What a kernel reads, plus the sort permutation for the unsort.
+    ``tile`` = (tile_w, tile_h) is the kernel's pixel tile. The binned
+    raster's arrays carry a band axis after the batch axis and its tile is
+    (xbin_w, tile_rows). The uv and Gouraud kernels read the three tables
+    after ``tile`` in place of ``ranges``, which their twins read."""
 
-    ranges: torch.Tensor  # (B, T, 2) int32 chunk range per pixel tile; binned (B, NB, YT, 2)
+    ranges: torch.Tensor  # (B, T, 2) int32 chunk range per TILE_PX tile; binned (B, NB, YT, 2)
     geom: torch.Tensor    # (B, NC, 16, 128) f32 edge + 1/z planes; binned (B, NB, NC, 16, 128)
     col: torch.Tensor     # (B, NC, 16, 128) f32 attribute/z planes; binned as geom
     order: torch.Tensor   # (B, F) int64 sorted -> caller face id; binned (B, NB, F)
     height: int
     width: int
-    tile: Tuple[int, ...] = ()
+    tile: Tuple[int, int]
+    tiles: Optional[torch.Tensor] = None      # (B, TY, 2) int32 chunk range per row of tiles
+    chunk_box: Optional[torch.Tensor] = None  # (B, NC, 4) int32 (x0, x1, y0, y1)
+    face_box: Optional[torch.Tensor] = None   # (B, NC, 128, 4) int32 (x0, x1, y0, y1)
+
+    def tables(self) -> tuple:
+        """The uv and Gouraud kernels' own tables; () for the binned raster."""
+        return () if self.tiles is None else (self.tiles, self.chunk_box, self.face_box)
 
     def args(self) -> tuple:
         """The kernel wrapper's arguments."""
-        return (self.ranges, self.geom, self.col, self.height, self.width) + tuple(self.tile)
+        return (self.ranges, self.geom, self.col, self.height, self.width) + tuple(self.tile) \
+            + self.tables()
 
 
 def _sort_faces(sf: ScreenFace) -> Tuple[ScreenFace, torch.Tensor]:
@@ -109,23 +129,34 @@ def pack_faces(sf: ScreenFace, n_chunks: int) -> Tuple[torch.Tensor, torch.Tenso
             col.reshape(shape).transpose(2, 3).contiguous())
 
 
-def chunk_ranges(sf: ScreenFace, n_chunks: int, n_tiles: int, width: int) -> torch.Tensor:
+def chunk_ranges(sf: ScreenFace, n_chunks: int, n_tiles: int, width: int,
+                 extents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """(B, T, 2) int32 [start, end) of the sorted chunks whose y-extent can
     touch each TILE_PX-pixel tile (:383-384: tile_ymax is the last row's
-    index plus 1)."""
+    index plus 1); ``extents``: ``_chunk_extents(sf, n_chunks)`` when at
+    hand."""
     tile = torch.arange(n_tiles, device=sf.valid.device)
     tile_ymin = torch.div(tile * TILE_PX, width, rounding_mode="floor").float()
     tile_ymax = torch.div((tile + 1) * TILE_PX - 1, width, rounding_mode="floor").float() + 1.0
-    return _ranges_for_rows(sf, n_chunks, tile_ymin, tile_ymax)
+    return _ranges_for_rows(extents or _chunk_extents(sf, n_chunks), tile_ymin, tile_ymax)
 
 
-def _ranges_for_rows(sf: ScreenFace, n_chunks: int, tile_ymin: torch.Tensor,
+def _ranges_for_rows(extents: Tuple[torch.Tensor, torch.Tensor], tile_ymin: torch.Tensor,
                      tile_ymax: torch.Tensor) -> torch.Tensor:
     """(N, T, 2) int32 [start, end) of the sorted chunks whose y-extent can
     touch tiles spanning rows [tile_ymin, tile_ymax]: chunks are
     ymin-sorted, so the first chunk with ymin > tile_ymax ends the scan,
     and the prefix whose running-max ymax < tile_ymin lies strictly above
-    the tile."""
+    the tile. ``extents`` = ``_chunk_extents``."""
+    chunk_ymin, cummax_ymax = extents
+    ends = (chunk_ymin[:, None, :] <= tile_ymax[None, :, None]).sum(-1)
+    starts = (cummax_ymax[:, None, :] < tile_ymin[None, :, None]).sum(-1)
+    return torch.stack([torch.minimum(starts, ends), ends], dim=-1).to(torch.int32).contiguous()
+
+
+def _chunk_extents(sf: ScreenFace, n_chunks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (N, NC) smallest ymin of each sorted chunk's valid faces and the
+    running max over the chunks of their largest ymax."""
     B, F = sf.valid.shape
     pad = n_chunks * LANE - F
     big = torch.full_like(sf.valid, _BIG)
@@ -135,21 +166,64 @@ def _ranges_for_rows(sf: ScreenFace, n_chunks: int, tile_ymin: torch.Tensor,
                                     (0, pad), value=-_BIG)
     chunk_ymin = fymin.reshape(B, n_chunks, LANE).amin(-1)
     chunk_ymax = fymax.reshape(B, n_chunks, LANE).amax(-1)
-    cummax_ymax = torch.cummax(chunk_ymax, dim=1).values
-    ends = (chunk_ymin[:, None, :] <= tile_ymax[None, :, None]).sum(-1)
-    starts = (cummax_ymax[:, None, :] < tile_ymin[None, :, None]).sum(-1)
-    return torch.stack([torch.minimum(starts, ends), ends], dim=-1).to(torch.int32).contiguous()
+    return chunk_ymin, torch.cummax(chunk_ymax, dim=1).values
+
+
+def tile_ranges(extents: Tuple[torch.Tensor, torch.Tensor], height: int,
+                tile_h: int) -> torch.Tensor:
+    """(B, TY, 2) int32 [start, end) of the sorted chunks whose y-extent can
+    touch the rows [ty tile_h, (ty + 1) tile_h) of a row of 2-D tiles (the
+    rule of ``chunk_ranges``, tile_ymax the last row's index plus 1), from
+    ``_chunk_extents``."""
+    ty = torch.arange((height + tile_h - 1) // tile_h, dtype=torch.float32,
+                      device=extents[0].device)
+    return _ranges_for_rows(extents, ty * tile_h, (ty + 1) * tile_h)
+
+
+def face_boxes(geom: torch.Tensor) -> torch.Tensor:
+    """(B, NC, 16, 128) packed planes -> (B, NC, 128, 4) int32 pixel box
+    [x0, x1) x [y0, y1) that holds every pixel the face can cover: its
+    vertices solved back out of the edge planes in float64 (vertex k is
+    where lam_k = 1 and the other two are 0), widened by 2 pixels. A face
+    covers a pixel only within a barycentric margin of 1e-6, far inside that
+    widening. Invalid and padded faces (ec0' = -1e30) and faces whose planes
+    are singular get the empty box. The solve stays finite: float32 planes
+    cannot overflow float64 products."""
+    # the three vertices at once, in a trailing axis: (t0, t1) = (1, 0), (0, 1), (0, 0)
+    ea0, ea1, eb0, eb1, ec0, ec1 = geom[:, :, :6, :, None].double().unbind(2)
+    det = ea0 * eb1 - eb0 * ea1
+    valid = (ec0 > -1e29) & (det != 0)  # invalid and padded faces carry ec0' = -1e30
+    det = torch.where(valid, det, 1.0)
+    t = torch.eye(2, 3, dtype=det.dtype, device=det.device)
+    r0, r1 = t[0] - ec0, t[1] - ec1
+    xy = torch.stack([(r0 * eb1 - eb0 * r1) / det, (ea0 * r1 - ea1 * r0) / det], -2)
+    lim = float(BOX_LIMIT)
+    lo = torch.where(valid, xy.amin(-1) - 2, lim)  # (B, NC, 128, 2): x, y
+    hi = torch.where(valid, xy.amax(-1) + 3, -lim)
+    return torch.stack([lo, hi], -1).flatten(-2).clamp(-lim, lim).floor().to(torch.int32)
+
+
+def chunk_boxes(face_box: torch.Tensor) -> torch.Tensor:
+    """(..., NC, 128, 4) face boxes -> (..., NC, 4) int32 box of each chunk,
+    the smallest that holds its faces' boxes (empty when they all are)."""
+    return torch.stack([face_box[..., 0].amin(-1), face_box[..., 1].amax(-1),
+                        face_box[..., 2].amin(-1), face_box[..., 3].amax(-1)], -1).contiguous()
 
 
 def prepare_raster(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
                    faces: torch.Tensor, face_valid: Optional[torch.Tensor],
-                   height: int, width: int, cull_backfaces: bool = False) -> RasterInputs:
-    """Pre-kernel work: screen faces, stable y-sort, packing, range table.
-    vert_attrs are (u, v, shade, page) per vertex for the uv kernel (page
-    constant per face) or (r, g, b) for the Gouraud kernel."""
+                   height: int, width: int, cull_backfaces: bool = False,
+                   tile: Tuple[int, int] = RASTER_TILE) -> RasterInputs:
+    """Pre-kernel work: screen faces, stable y-sort, packing, the 1-D range
+    table and the kernel's tables for its 2-D tiles of ``tile`` = (tile_w,
+    tile_h), one of ``RASTER_TILES``. vert_attrs are (u, v, shade, page)
+    per vertex for the uv kernel (page constant per face) or (r, g, b) for
+    the Gouraud kernel."""
     if vert_attrs.shape[-1] not in (3, 4):
         raise ValueError("the raster takes (r, g, b) or (u, v, shade, page) attrs, "
                          f"got {tuple(vert_attrs.shape)}")
+    if tuple(tile) not in RASTER_TILES:
+        raise ValueError(f"the raster's tile {tuple(tile)} is not one of {RASTER_TILES}")
     F = faces.shape[-2]
     n_chunks = (F + LANE - 1) // LANE
     n_tiles = (height * width + TILE_PX - 1) // TILE_PX
@@ -157,8 +231,11 @@ def prepare_raster(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
                             cull_backfaces=cull_backfaces)
     sf, order = _sort_faces(sf)
     geom, col = pack_faces(sf, n_chunks)
-    ranges = chunk_ranges(sf, n_chunks, n_tiles, width)
-    return RasterInputs(ranges, geom, col, order, height, width)
+    extents = _chunk_extents(sf, n_chunks)
+    ranges = chunk_ranges(sf, n_chunks, n_tiles, width, extents)
+    fbox = face_boxes(geom)
+    return RasterInputs(ranges, geom, col, order, height, width, tuple(tile),
+                        tile_ranges(extents, height, tile[1]), chunk_boxes(fbox), fbox)
 
 
 def prepare_raster_binned(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
@@ -192,50 +269,25 @@ def prepare_raster_binned(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
     sfb, order = _sort_faces(sfb)
     geom, col = pack_faces(sfb, n_chunks)
     ty = torch.arange(n_ytiles, dtype=torch.float32, device=dev)
-    ranges = _ranges_for_rows(sfb, n_chunks, ty * tile_rows, (ty + 1) * tile_rows)
+    ranges = _ranges_for_rows(_chunk_extents(sfb, n_chunks), ty * tile_rows,
+                              (ty + 1) * tile_rows)
     shape = (B, n_bands, n_chunks, N_ROWS, LANE)
     return RasterInputs(ranges.reshape(B, n_bands, n_ytiles, 2), geom.reshape(shape),
                         col.reshape(shape), order.reshape(B, n_bands, F), height, width,
                         (xbin_w, tile_rows))
 
 
-def _chunk_boxes(geom: torch.Tensor) -> torch.Tensor:
-    """(B, NC, 4) integer pixel box [x0, x1) x [y0, y1) that holds every
-    pixel a valid face of the chunk can cover, from the face vertices
-    solved back out of the edge planes (vertex k is where lam_k = 1 and the
-    other two are 0), widened by 2 pixels. A face covers a pixel only within
-    a barycentric margin of 1e-6, far inside that widening."""
-    ea0, ea1, eb0, eb1, ec0, ec1 = (geom[:, :, r].double() for r in range(6))
-    valid = ec0 > -1e29  # invalid and padded faces carry ec0' = -1e30
-    det = ea0 * eb1 - eb0 * ea1
-    valid &= det != 0
-    det = torch.where(valid, det, 1.0)
-    xs, ys = [], []
-    for t0, t1 in ((1.0, 0.0), (0.0, 1.0), (0.0, 0.0)):
-        r0, r1 = t0 - ec0, t1 - ec1
-        xs.append((r0 * eb1 - eb0 * r1) / det)
-        ys.append((ea0 * r1 - ea1 * r0) / det)
-    x, y = torch.stack(xs, -1), torch.stack(ys, -1)  # (B, NC, 128, 3)
-    inf = torch.full_like(x, float("inf"))
-    lo_x = torch.where(valid[..., None], x, inf).amin((-1, -2))
-    hi_x = torch.where(valid[..., None], x, -inf).amax((-1, -2))
-    lo_y = torch.where(valid[..., None], y, inf).amin((-1, -2))
-    hi_y = torch.where(valid[..., None], y, -inf).amax((-1, -2))
-    box = torch.stack([lo_x - 2, hi_x + 3, lo_y - 2, hi_y + 3], -1)
-    return torch.nan_to_num(box, nan=0.0, posinf=1e9, neginf=-1e9).floor().clamp(-1e9, 1e9).long()
-
-
 def _nearest_face_torch(ranges: torch.Tensor, geom: torch.Tensor, height: int, width: int,
                         tile: Tuple[int, ...] = ()):
     """Plain pass 1: the same chunk scan, key packing and tie-break as the
     kernels. Each chunk is evaluated only on the pixels of its tiles'
-    ranges inside its box (``_chunk_boxes``); outside it no face of the
-    chunk can hit, so the keys are the kernel's. ``tile`` () is the 1-D
-    layout (ranges (B, T, 2), geom (B, NC, 16, 128), TILE_PX-pixel tiles);
-    (xbin_w, tile_rows) the binned one (ranges (B, NB, YT, 2), geom
-    (B, NB, NC, 16, 128), band k holding the columns [k xbin_w,
-    (k + 1) xbin_w) and tile ty the rows [ty tile_rows, (ty + 1) tile_rows)).
-    -> (best key, best chunk), each (B, H * W) int32."""
+    ranges inside its box (``chunk_boxes``); outside it no face of the
+    chunk can hit, so the keys are those of a scan of every face. ``tile``
+    () is the 1-D layout (ranges (B, T, 2), geom (B, NC, 16, 128),
+    TILE_PX-pixel tiles); (xbin_w, tile_rows) the binned one (ranges
+    (B, NB, YT, 2), geom (B, NB, NC, 16, 128), band k holding the columns
+    [k xbin_w, (k + 1) xbin_w) and tile ty the rows [ty tile_rows,
+    (ty + 1) tile_rows)). -> (best key, best chunk), each (B, H * W) int32."""
     B = ranges.shape[0]
     dev = geom.device
     if tile:
@@ -247,7 +299,7 @@ def _nearest_face_torch(ranges: torch.Tensor, geom: torch.Tensor, height: int, w
     best_chunk = torch.zeros_like(best)
     ranges_host = ranges.cpu()
     for k in range(geom.shape[1]):
-        boxes = _chunk_boxes(geom[:, k]).cpu().tolist()
+        boxes = chunk_boxes(face_boxes(geom[:, k])).cpu().tolist()
         band_x0, band_x1 = k * xbin_w, min((k + 1) * xbin_w, width)
         for b in range(B):
             for c in range(geom.shape[2]):
@@ -305,9 +357,10 @@ def _winner_planes(ranges, geom, col, height, width, tile: Tuple[int, ...] = ())
 
 
 def rasterize_batch_uv_torch(ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                             height: int, width: int) -> Tuple[torch.Tensor, ...]:
+                             height: int, width: int, *_kernel_tables) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch twin of the uv kernel: -> (quv, qsp, win_sorted int32,
-    depth), each (B, H*W)."""
+    depth), each (B, H*W). It scans the 1-D range table and ignores the
+    kernel's tile and tables (``RasterInputs.args()``)."""
     x, y, hitm, depth, win_sorted, fc = _winner_planes(ranges, geom, col, height, width)
 
     def interp(k):
@@ -338,9 +391,11 @@ def _gouraud_pass2(x, y, hitm, depth, fc) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def rasterize_batch_rgb_torch(ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                              height: int, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                              height: int, width: int,
+                              *_kernel_tables) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of the Gouraud kernel: -> (rgb (B, H*W, 3) in
-    {k * float32(1/255)}, depth (B, H*W))."""
+    {k * float32(1/255)}, depth (B, H*W)); the kernel's tile and tables are
+    ignored, as by the uv twin."""
     x, y, hitm, depth, _, fc = _winner_planes(ranges, geom, col, height, width)
     return _gouraud_pass2(x, y, hitm, depth, fc)
 
@@ -369,10 +424,10 @@ class RasterLibrary:
         if self._lib is None:
             path, self.build_log = build_library(self.source)
             lib = ctypes.CDLL(str(path))
-            lib.raster_uv_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            lib.raster_uv_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                                              + [ctypes.c_void_p])
             lib.raster_uv_launch.restype = ctypes.c_int
-            lib.raster_rgb_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            lib.raster_rgb_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                                               + [ctypes.c_void_p])
             lib.raster_rgb_launch.restype = ctypes.c_int
             lib.raster_rgb_binned_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
@@ -411,13 +466,32 @@ def _check_inputs(name: str, ranges, geom, col, height: int, width: int,
                          f"{MAX_BINNED_TILE_PX} pixels")
 
 
+def _check_tables(name: str, geom, height: int, width: int, tile: Tuple[int, ...],
+                  tiles, chunk_box, face_box):
+    """What the uv and Gouraud kernel wrappers refuse in their 2-D tile and
+    tables (``prepare_raster``) before a launch."""
+    if tuple(tile) not in RASTER_TILES:
+        raise ValueError(f"{name}: tile {tuple(tile)} is not one of {RASTER_TILES}")
+    B, NC = geom.shape[:2]
+    want = ((tiles, (B, -(-height // tile[1]), 2)), (chunk_box, (B, NC, 4)),
+            (face_box, (B, NC, LANE, 4)))
+    for t, shape in want:
+        if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape
+                or t.dtype != torch.int32 or not t.is_contiguous() or t.device != geom.device
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: the tile tables must be int32 (B, TY, 2), (B, NC, 4) and "
+                             f"(B, NC, {LANE}, 4) = {[s for _, s in want]}, contiguous and "
+                             "16-byte aligned on the planes' device")
+
+
 class RasterKernel:
     """ctypes wrapper of one launch function of ``raster.cu``; ``launches``
     counts kernel launches (and nothing else). ``twin`` is the plain
-    PyTorch version the wrapper runs for CPU tensors. The binned kernel
-    takes the tile (xbin_w, tile_rows) after the image size, as
-    ``RasterInputs.args()`` gives it; its tile may hold at most
-    MAX_BINNED_TILE_PX pixels."""
+    PyTorch version the wrapper runs for CPU tensors. Every kernel takes its
+    pixel tile (tile_w, tile_h) after the image size, as
+    ``RasterInputs.args()`` gives it; the uv and Gouraud kernels take their
+    three tables after it, the binned kernel none. A binned tile may hold at
+    most MAX_BINNED_TILE_PX pixels."""
 
     def __init__(self, name: str, library: RasterLibrary, twin):
         self.name, self.library, self.twin = name, library, twin
@@ -431,37 +505,44 @@ class RasterKernel:
         return self.library.get()
 
     def __call__(self, ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                 height: int, width: int, *tile: int) -> Tuple[torch.Tensor, ...]:
-        if len(tile) != (2 if self.name == "raster_rgb_binned" else 0):
-            raise ValueError(f"{self.name}: got tile {tile}; only raster_rgb_binned takes "
-                             "(xbin_w, tile_rows)")
+                 height: int, width: int, tile_w: int, tile_h: int,
+                 *tables: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        binned = self.name == "raster_rgb_binned"
+        if len(tables) != (0 if binned else 3):
+            raise ValueError(f"{self.name}: got {len(tables)} tables after the tile; "
+                             "raster_uv and raster_rgb take (tiles, chunk_box, face_box), "
+                             "only raster_rgb_binned takes (xbin_w, tile_rows) alone")
+        tile = (tile_w, tile_h)
         if geom.device.type == "cpu":
-            return self.twin(ranges, geom, col, height, width, *tile)
+            return self.twin(ranges, geom, col, height, width, *tile, *tables)
         if geom.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {geom.device}")
-        _check_inputs(self.name, ranges, geom, col, height, width, tile)
+        _check_inputs(self.name, ranges, geom, col, height, width, tile if binned else ())
+        if not binned:
+            _check_tables(self.name, geom, height, width, tile, *tables)
         lib = self.build()
         B, n_pix = ranges.shape[0], height * width
         f32 = dict(dtype=torch.float32, device=geom.device)
         stream = torch.cuda.current_stream(geom.device).cuda_stream
-        head = (ranges.data_ptr(), geom.data_ptr(), col.data_ptr())
+        head = tuple(t.data_ptr() for t in tables) + (geom.data_ptr(), col.data_ptr())
         if self.name == "raster_uv":
             quv, qsp, depth = (torch.empty((B, n_pix), **f32) for _ in range(3))
             win = torch.empty((B, n_pix), dtype=torch.int32, device=geom.device)
             err = lib.raster_uv_launch(*head, quv.data_ptr(), qsp.data_ptr(), win.data_ptr(),
-                                       depth.data_ptr(), B, geom.shape[1], ranges.shape[1],
-                                       n_pix, width, stream)
+                                       depth.data_ptr(), B, geom.shape[1], height, width,
+                                       *tile, stream)
             out = (quv, qsp, win, depth)
         else:
             rgb = torch.empty((B, n_pix, 3), **f32)
             depth = torch.empty((B, n_pix), **f32)
-            head += (rgb.data_ptr(), depth.data_ptr())
             if self.name == "raster_rgb":
-                err = lib.raster_rgb_launch(*head, B, geom.shape[1], ranges.shape[1], n_pix,
-                                            width, stream)
+                err = lib.raster_rgb_launch(*head, rgb.data_ptr(), depth.data_ptr(), B,
+                                            geom.shape[1], height, width, *tile, stream)
             else:
-                err = lib.raster_rgb_binned_launch(*head, B, ranges.shape[1], ranges.shape[2],
-                                                   geom.shape[2], height, width, *tile, stream)
+                err = lib.raster_rgb_binned_launch(ranges.data_ptr(), *head, rgb.data_ptr(),
+                                                   depth.data_ptr(), B, ranges.shape[1],
+                                                   ranges.shape[2], geom.shape[2], height,
+                                                   width, *tile, stream)
             out = (rgb, depth)
         if err != 0:
             raise RuntimeError(f"{self.name}_launch failed: CUDA error {err}")
@@ -495,6 +576,56 @@ def finish_rgb_raster(inp: RasterInputs, rgb, depth):
     return rgb.reshape(B, inp.height, inp.width, 3), depth.reshape(B, inp.height, inp.width)
 
 
+def scanned_faces(inp: RasterInputs) -> torch.Tensor:
+    """(B, RY, RX, NC, 128) bool: the faces the uv and Gouraud kernels
+    evaluate in each RASTER_REGION x RASTER_REGION region of the image (one
+    warp's pixels): those of the chunks in its tile row's range whose chunk
+    box meets its tile and whose own box meets the region."""
+    tw, th = inp.tile
+    r = RASTER_REGION
+    B, NC = inp.geom.shape[:2]
+    dev = inp.geom.device
+    x0 = torch.arange(-(-inp.width // tw) * (tw // r), device=dev) * r  # region origins
+    y0 = torch.arange(-(-inp.height // th) * (th // r), device=dev) * r
+
+    def meets(box, xs, ys, w, h):  # (B, NC, n, 4) -> (B, RY, RX, NC, n)
+        box = box[:, None]
+        xs, ys = xs[:, None, None], ys[:, None, None]
+        in_x = (box[..., 0] < xs + w) & (box[..., 1] > xs)  # (B, RX, NC, n)
+        in_y = (box[..., 2] < ys + h) & (box[..., 3] > ys)  # (B, RY, NC, n)
+        return in_y[:, :, None] & in_x[:, None]
+
+    tile_x0, tile_y0 = x0 - x0 % tw, y0 - y0 % th
+    c = torch.arange(NC, device=dev)
+    in_range = (c >= inp.tiles[..., :1]) & (c < inp.tiles[..., 1:])  # (B, TY, NC)
+    in_range = in_range[:, torch.div(y0, th, rounding_mode="floor")]  # (B, RY, NC)
+    chunk_in = meets(inp.chunk_box[:, :, None], tile_x0, tile_y0, tw, th)
+    return (in_range[:, :, None, :, None] & chunk_in
+            & meets(inp.face_box, x0, y0, r, r))
+
+
+def raster_work(inp: RasterInputs) -> Tuple[int, int, int]:
+    """What a raster kernel's inputs need, for its bound: -> (bytes read:
+    each array the kernel reads, once; bytes written: 16 a pixel; pixel x
+    face-box pairs: for every face, the pixels of its ``face_boxes`` box in
+    the image, in its band's columns for the binned raster)."""
+    arrays = inp.tables() + (inp.geom, inp.col) if inp.tiles is not None \
+        else (inp.ranges, inp.geom, inp.col)
+    read = sum(t.numel() * t.element_size() for t in arrays)
+    B, H, W = inp.geom.shape[0], inp.height, inp.width
+    if inp.tiles is not None:
+        box = inp.face_box.long()
+        nx = box[..., 1].clamp(max=W) - box[..., 0].clamp(min=0)
+    else:  # binned: boxes (B, NB, NC, 128, 4), band k over columns [k xbin_w, (k + 1) xbin_w)
+        xbin_w, n_bands = inp.tile[0], inp.geom.shape[1]
+        box = face_boxes(inp.geom.flatten(0, 1)).unflatten(0, (B, n_bands)).long()
+        x_lo = (torch.arange(n_bands, device=box.device) * xbin_w)[:, None, None]
+        nx = (torch.minimum(box[..., 1], (x_lo + xbin_w).clamp(max=W))
+              - torch.maximum(box[..., 0], x_lo))
+    ny = box[..., 3].clamp(max=H) - box[..., 2].clamp(min=0)
+    return read, 16 * B * H * W, int((nx.clamp_min(0) * ny.clamp_min(0)).sum())
+
+
 def rasterize_batch_uv(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
                        faces: torch.Tensor, face_valid: Optional[torch.Tensor],
                        height: int, width: int, cull_backfaces: bool = False):
@@ -502,8 +633,7 @@ def rasterize_batch_uv(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
     win (caller face id), depth (0 = background))."""
     inp = prepare_raster(verts_screen, vert_attrs, faces, face_valid, height, width,
                          cull_backfaces)
-    out = raster_uv(inp.ranges, inp.geom, inp.col, height, width)
-    return finish_uv_raster(inp, *out)
+    return finish_uv_raster(inp, *raster_uv(*inp.args()))
 
 
 def rasterize_batch_rgb(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
@@ -520,5 +650,4 @@ def rasterize_batch_rgb(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
         return finish_rgb_raster(inp, *raster_rgb_binned(*inp.args()))
     inp = prepare_raster(verts_screen, vert_colors, faces, face_valid, height, width,
                          cull_backfaces)
-    out = raster_rgb(inp.ranges, inp.geom, inp.col, height, width)
-    return finish_rgb_raster(inp, *out)
+    return finish_rgb_raster(inp, *raster_rgb(*inp.args()))

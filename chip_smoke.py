@@ -9,14 +9,22 @@ Phases, each fatal on failure:
   3. each kernel against its plain PyTorch twin on the card, bit for bit:
      the seeded scenes of ``artiboost_torch/ops/raster_scenes.py`` (random
      triangles at F = 60 and F = 700, invalid faces, a two-triangle depth
-     tie) with back-face culling off and on, B3 at (xbin_w, tile_rows) =
-     (16, 8), (8, 4), (16, 5) and (32, 8); B3 on the parity gate's binned
-     scene at its (32, 8); the uv kernel on one val batch of the main path
-     (B = 128 at 112x112); the rgb kernel and B3 at (64, 8), (64, 16) and
+     tie) with back-face culling off and on, B1 and B2 at every 2-D tile of
+     ``RASTER_TILES``, B3 at (xbin_w, tile_rows) = (16, 8), (8, 4), (16, 5)
+     and (32, 8); B3 on the parity gate's binned scene at its (32, 8); the
+     uv kernel at every tile on one val batch of the main path (B = 128 at
+     112x112); the rgb kernel at every tile and B3 at (64, 8), (64, 16) and
      (128, 16) on one SyntheticHO render chunk at full width (B = 16 at
      512x512, hand plus an object of up to 1024 faces), B3 also against B2
      there (depth within 1e-6; colour equal but at depth-key ties, which
-     are counted); kernel and plain times and bounds at those shapes;
+     are counted). Kernel times (CUDA events over a CUDA graph of 50
+     launches, so the wrapper's host work is not timed), plain times and
+     bounds at those shapes. The bound is the larger of the bytes (every
+     array the kernel reads, once, and 16 B written a pixel, at 3.35 TB/s)
+     and the operations (pixel x face-box pairs x 25, at 67 TFLOP/s FP32);
+     beside it, the time of zeroing the kernel's outputs (the writes
+     alone), the 1-D scan's chunks per pixel and the face evaluations per
+     pixel that the kernel's tables leave;
   4. the val-and-mining slice at full width (config
      ho3dv2_clasbased_artiboost.yaml: ResNet34 in bfloat16, 224x224, batch
      128, CCV 4 x 288 x 50, method_1, the hand_obj refiner with ITERS 3
@@ -74,30 +82,41 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, graph: bool = False) -> float:
+    """Mean ms of fn() over reps calls, by CUDA events. With ``graph`` the
+    calls are captured once in a CUDA graph and the replay is timed, so a
+    kernel faster than its wrapper's host work is timed on the card."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(reps)]  # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def compare(kernel, finish, inp, torch):
-    """Kernel vs its plain twin on one prepared input: -> (max abs err, equal)."""
+def compare(kernel, finish, inp, torch, plain=None):
+    """Kernel vs its plain twin on one prepared input (``plain``: the twin's
+    finished outputs when they are at hand): -> (max abs err, equal, plain)."""
     k = finish(inp, *kernel(*inp.args()))
-    p = finish(inp, *kernel.twin(*inp.args()))
+    p = plain if plain is not None else finish(inp, *kernel.twin(*inp.args()))
     torch.cuda.synchronize()
     err, equal = 0.0, True
     for a, b in zip(k, p):
         equal &= bool(torch.equal(a, b))
         err = max(err, float((a.double() - b.double()).abs().max()))
-    return err, equal
+    return err, equal, p
 
 
 def capture(module, name, fn):
@@ -153,13 +172,14 @@ def check_refined(records, label: str, torch):
 
 
 def scanned_chunk_pixels(inp, torch) -> float:
-    """Sum over the kernel's tiles of (in-image pixels) x (chunks in the
-    tile's range): the pass-1 work of this input."""
+    """Sum over the tiles of the range table of (in-image pixels) x (chunks
+    in the tile's range): the pass-1 work of a scan of every chunk in range,
+    B3's design and the uv and Gouraud kernels' first one."""
     from artiboost_torch.ops.rasterizer_cuda import TILE_PX
 
     span = (inp.ranges[..., 1] - inp.ranges[..., 0]).double()
     dev = span.device
-    if inp.tile:  # (B, NB, YT): tiles of tile_rows x xbin_w, cropped at the image
+    if inp.tiles is None:  # binned (B, NB, YT): tiles of tile_rows x xbin_w, cropped
         xbin_w, tile_rows = inp.tile
         cols = torch.clamp(inp.width - torch.arange(span.shape[1], device=dev) * xbin_w,
                            0, xbin_w)
@@ -172,21 +192,45 @@ def scanned_chunk_pixels(inp, torch) -> float:
     return float((span * tile_pix).sum())
 
 
-def timing(kernel, inp, reps_plain: int, card: str, torch, label: str = ""):
-    """Kernel and twin times (CUDA events) and the bound at this input."""
-    ms = cuda_ms(lambda: kernel(*inp.args()), 50)
-    plain_ms = cuda_ms(lambda: kernel.twin(*inp.args()), reps_plain)
+def face_evaluations(inp, torch) -> float:
+    """Face evaluations of this input's pass 1: for the uv and Gouraud
+    kernels, each warp region's pixels in the image times the faces the
+    tables leave it (``scanned_faces``); for B3, 128 a chunk in range."""
+    from artiboost_torch.ops.rasterizer_cuda import RASTER_REGION as r, scanned_faces
+
+    if inp.tiles is None:
+        return scanned_chunk_pixels(inp, torch) * 128
+    n_faces = scanned_faces(inp).sum((-1, -2)).double()  # (B, RY, RX)
+    dev = n_faces.device
+    cols = torch.clamp(inp.width - torch.arange(n_faces.shape[2], device=dev) * r, 0, r)
+    rows = torch.clamp(inp.height - torch.arange(n_faces.shape[1], device=dev) * r, 0, r)
+    return float((n_faces * (rows[:, None] * cols[None, :]).double()).sum())
+
+
+def timing(kernel, inp, reps_plain: int, card: str, torch):
+    """Kernel time (a CUDA graph of 50 launches), the time of zeroing its
+    outputs (the writes alone), the twin's time (host loop, ``reps_plain``
+    calls; 0 skips it) and the bound at this input."""
+    from artiboost_torch.ops.rasterizer_cuda import raster_work
+
+    ms = cuda_ms(lambda: kernel(*inp.args()), 50, graph=True)
+    outs = kernel(*inp.args())
+    fill_ms = cuda_ms(lambda: [t.zero_() for t in outs], 50, graph=True)  # the writes alone
+    plain_ms = cuda_ms(lambda: kernel.twin(*inp.args()), reps_plain) if reps_plain else None
     B, n_pix = inp.geom.shape[0], inp.height * inp.width
-    chunk_px = scanned_chunk_pixels(inp, torch)
-    ops = chunk_px * 128 * RASTER_OPS_PER_LANE
-    nbytes = sum(t.numel() * t.element_size() for t in (inp.ranges, inp.geom, inp.col)) \
-        + 4 * B * n_pix * 4  # four 32-bit output words per pixel
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP32_OPS_PER_S
+    read, written, pairs = raster_work(inp)
+    t_bytes = (read + written) / H100_BYTES_PER_S
+    t_ops = pairs * RASTER_OPS_PER_LANE / H100_FP32_OPS_PER_S
     bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    chunk_px, evals = scanned_chunk_pixels(inp, torch), face_evaluations(inp, torch)
+    plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
     print(f"{kernel.name} timing ({card}): B={B} {inp.height}x{inp.width} "
-          f"F={inp.order.shape[-1]}{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms by {bound_by} (mean {chunk_px / (B * n_pix):.3f} "
-          f"chunks/pixel, {nbytes} bytes, {ops:.4g} ops)", flush=True)
+          f"F={inp.order.shape[-1]} tile {inp.tile[1]}x{inp.tile[0]}: kernel {ms:.4f} ms, "
+          f"zeroing its outputs {fill_ms:.4f} ms, plain {plain}, bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({bound_ms / ms:.1%} of it reached; {read} B read, {written} B written, "
+          f"{pairs} pixel x face-box pairs = {pairs / (B * n_pix):.3f} a pixel); 1-D scan "
+          f"{chunk_px / (B * n_pix):.3f} chunks/pixel, {evals / (B * n_pix):.3f} face "
+          "evaluations/pixel", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -303,6 +347,8 @@ def main():
     from artiboost_torch.models.arch import build_arch
     from artiboost_torch.ops.raster_scenes import raster_check_scenes, rgb_attrs
     from artiboost_torch.ops.rasterizer_cuda import (
+        RASTER_TILE,
+        RASTER_TILES,
         finish_rgb_raster,
         finish_uv_raster,
         prepare_raster,
@@ -349,20 +395,30 @@ def main():
     finish = {"raster_uv": finish_uv_raster, "raster_rgb": finish_rgb_raster,
               "raster_rgb_binned": finish_rgb_raster}
 
-    def hold(kernel, inp, label):
-        err, equal = compare(kernel, finish[kernel.name], inp, torch)
+    def hold(kernel, inp, label, plain=None):
+        err, equal, plain = compare(kernel, finish[kernel.name], inp, torch, plain)
         kernels[kernel.name]["max_abs_err"] = max(kernels[kernel.name]["max_abs_err"], err)
         print(f"{kernel.name} {label}: bit-equal={equal} max_abs_err={err}", flush=True)
         check(equal, f"{kernel.name} differs from its plain twin on {label}")
+        return plain
+
+    def hold_tiles(kernel, make, label):
+        """B1 or B2 at every tile of RASTER_TILES (make(tile) -> inputs)
+        against one run of the twin, which reads no tile -> {tile: inputs}."""
+        inps, plain = {}, None
+        for tile in RASTER_TILES:
+            inps[tile] = make(tile)
+            plain = hold(kernel, inps[tile], f"{label} tile {tile[1]}x{tile[0]}", plain)
+        return inps
 
     for name, sc in raster_check_scenes().items():
         t = {k: torch.from_numpy(sc[k]).to(dev) for k in ("verts", "attrs", "faces", "valid")}
         rgb = torch.from_numpy(rgb_attrs(sc)).to(dev)
         for cull in (False, True):
             for kernel, attrs in ((raster_uv, t["attrs"]), (raster_rgb, rgb)):
-                hold(kernel, prepare_raster(t["verts"], attrs, t["faces"], t["valid"],
-                                            sc["H"], sc["W"], cull_backfaces=cull),
-                     f"{name} cull={cull}")
+                hold_tiles(kernel, lambda tile: prepare_raster(
+                    t["verts"], attrs, t["faces"], t["valid"], sc["H"], sc["W"],
+                    cull_backfaces=cull, tile=tile), f"{name} cull={cull}")
             for xbin_w, tile_rows in BINNED_CHECK_TILES:
                 hold(raster_rgb_binned,
                      prepare_raster_binned(t["verts"], rgb, t["faces"], t["valid"], sc["H"],
@@ -379,20 +435,28 @@ def main():
     probe = ArtiBoostLoader(cfg=slice_config(val_cfg), batch_size=128, seed=0, device=dev)
     probe.prepare_val()
     args, kw = capture(renderer, "rasterize_batch_uv", lambda: next(probe.iter_val()))
-    inp = prepare_raster(*args, **kw)
-    hold(raster_uv, inp, f"main-path val batch B={inp.geom.shape[0]} {inp.height}x{inp.width}")
-    kernels["raster_uv"].update(timing(raster_uv, inp, 5, card, torch))
-    del probe
+    inps = hold_tiles(raster_uv, lambda tile: prepare_raster(*args, tile=tile, **kw),
+                      "main-path val batch")
+    for tile, inp in inps.items():
+        timed = timing(raster_uv, inp, 5 if tile == RASTER_TILE else 0, card, torch)
+        if tile == RASTER_TILE:
+            kernels["raster_uv"].update(timed)
+    del probe, inps
 
     synth_cfg = {"TYPE": "SyntheticHO", "DATA_SPLIT": "train", "AUG": True, "RAW_SIZE": 512,
                  "AUG_PARAM": {"SCALE_JIT": 0.1, "CENTER_JIT": 0.1, "MAX_ROT": 0.2}}
     args, kw = capture(renderer, "rasterize_batch_rgb", lambda: build_dataset(
         dict(synth_cfg, N_SAMPLES=16), cfg["DATA_PRESET"], device=dev))
-    inp = prepare_raster(*args, **kw)
+    inps = hold_tiles(raster_rgb, lambda tile: prepare_raster(*args, tile=tile, **kw),
+                      "SyntheticHO chunk")
+    for tile, inp in inps.items():
+        timed = timing(raster_rgb, inp, 3 if tile == RASTER_TILE else 0, card, torch)
+        if tile == RASTER_TILE:
+            kernels["raster_rgb"].update(timed)
+    inp = inps[RASTER_TILE]
     chunk = f"SyntheticHO chunk B={inp.geom.shape[0]} {inp.height}x{inp.width}"
-    hold(raster_rgb, inp, chunk)
-    kernels["raster_rgb"].update(timing(raster_rgb, inp, 3, card, torch))
     rgb_1d, depth_1d = finish_rgb_raster(inp, *raster_rgb(*inp.args()))
+    del inps
     for xbin_w, tile_rows in BINNED_FULL_TILES:
         tile = f"tile {tile_rows}x{xbin_w}"
         binp = prepare_raster_binned(*args, xbin_w=xbin_w, tile_rows=tile_rows, **kw)
@@ -413,7 +477,7 @@ def main():
               and n_tie <= 1e-4 * depth_b.numel(),
               f"raster_rgb_binned {tile} departs from raster_rgb: depth {depth_err}, "
               f"{int(rgb_diff.sum())} rgb pixels of which {n_tie} at depth ties")
-        timed = timing(raster_rgb_binned, binp, 2, card, torch, f" {tile}")
+        timed = timing(raster_rgb_binned, binp, 2, card, torch)
         if "ms" not in kernels["raster_rgb_binned"]:
             kernels["raster_rgb_binned"].update(timed)
         del binp, rgb_b, depth_b

@@ -365,7 +365,10 @@ __device__ __forceinline__ void store_rgb(float* __restrict__ rgb_b, const float
           s[q];
     }
   } else {
-    for (int k = 0; k < 3 * n; ++k) dst[k] = v[k];
+#pragma unroll
+    for (int k = 0; k < 3 * kPix; ++k) {
+      if (k < 3 * n) dst[k] = v[k];  // a fixed index keeps v in registers
+    }
   }
 }
 

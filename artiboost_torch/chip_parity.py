@@ -115,7 +115,7 @@ def check_binned(device) -> str:
     n_diff = int(((d != d_ref) | np.any(a != a_ref, axis=-1)).sum())
     # the same launch against the binned kernel's plain twin, bit for bit
     inp = prepare_raster_binned(verts, attrs, faces, None, H, W, 32, 8)
-    a_twin, d_twin = _np(*finish_rgb_raster(inp, *raster_rgb_binned.twin(*inp.args())))
+    a_twin, d_twin = _np(*finish_rgb_raster(inp, *raster_rgb_binned.twin(*inp.twin_args())))
     _require(np.array_equal(a, a_twin) and np.array_equal(d, d_twin),
              f"binned kernel vs its twin: depth {np.abs(d - d_twin).max()}, "
              f"rgb {np.abs(a - a_twin).max()}")
@@ -133,7 +133,7 @@ def check_production_lod_uv(device, B: int = 8) -> str:
 
     def uv_twin(*args, **kw):
         inp = prepare_raster(*args, **kw)
-        return finish_uv_raster(inp, *raster_uv.twin(*inp.args()))
+        return finish_uv_raster(inp, *raster_uv.twin(*inp.twin_args()))
 
     cfg = load_config(asset_path(RELEASED_CONFIG))
     manager = dict(slice_config(cfg), CONFIG_LEN_TRAIN=16, OPG_BATCH_SIZE=16)

@@ -36,26 +36,33 @@
 //   * every a*b+c is rounded twice (__fmul_rn/__fadd_rn): nvcc would
 //     otherwise contract it into an FMA and change the bits.
 //
-// B1 and B2: one block per (TW x TH pixel tile, image), one warp per 8 x 8
-// region of the tile, each thread holding 2 adjacent pixels of one row. The
-// inputs need far less work than a scan of every chunk in the tile's
-// y-range: a face can only hit pixels inside its own box, and a mesh face's
-// box is a few hundred pixels. So the block culls before it evaluates:
+// B1 and B2: one block of 128 threads per (16 x 16 pixel tile, image), one
+// warp per 8 x 8 region of the tile, each thread holding 2 adjacent pixels
+// of one row (PERF.md holds the 8 x 32 and 8 x 8 tiles, measured slower
+// on the card). The inputs need far less work than a scan of every chunk in the
+// tile's y-range: a face can only hit pixels inside its own box, and a mesh
+// face's box is a few hundred pixels. So the block culls before it
+// evaluates:
 //   1. the chunks of its row of tiles' range (`tiles`, the y-sorted rule of
 //      the 1-D table at the tile's rows) whose box (`chunk_box`) misses the
 //      tile are skipped;
-//   2. of each other chunk, one thread per lane tests that face's box
-//      (`face_box`: its vertices solved from the planes in float64, widened
-//      by 2 px) against the tile; the survivors are compacted in (chunk,
-//      lane) order, by ballot and a prefix over the four 32-lane groups,
-//      into a shared list of up to 128 faces: 9 geometry rows padded to 12
-//      floats (three 16-byte loads), the chunk, the original lane and the
-//      mask of the warps whose region the box meets;
+//   2. of each other chunk, thread t tests lane t's box (`face_box`: its
+//      vertices solved from the planes in float64, widened by 2 px) against
+//      the tile; the survivors are compacted in (chunk, lane) order, by
+//      ballot and a prefix over the four 32-lane groups, into a shared list
+//      of up to 128 faces: 9 geometry rows padded to 12 floats (three
+//      16-byte loads), the chunk, the original lane and the mask of the
+//      warps whose region the box meets;
 //   3. every warp scans the list in order, skipping the faces whose box
 //      misses its region, with today's test and strict > on today's key, so
 //      the winner, its chunk and its lane are those of the full scan (a
 //      face whose box misses a pixel cannot hit it, so it never changes that
 //      pixel's key). A full list is scanned and refilled.
+// The loads of steps 1-2 are cp.async copies: the face boxes of the next
+// kBoxDepth - 1 chunks are in flight while a chunk is culled, and a
+// survivor's 9 geometry rows go from global memory straight into the list;
+// the block waits for them only before it scans. Each chunk then costs one
+// barrier and no wait on global memory once the ring is full.
 // The products y*b are shared by a thread's pixels: the same operands, the
 // same rounding. Tensor cores do not fit this work: a plane value is
 // ((x*a)_r + (y*b)_r)_r + c rounded after each operation, and wgmma (TF32
@@ -90,12 +97,19 @@ constexpr int kRows = 16;       // plane rows per chunk
 constexpr int kGeomRows = 9;    // geometry rows actually read in pass 1
 constexpr int kLaneMask = 0x7F; // low 7 mantissa bits carry the lane id
 constexpr int kGroups = kLane / 32;   // 32-lane groups of a chunk, one ballot each
-constexpr int kListCap = 128;         // B1/B2: faces staged per scan of the list
+constexpr int kTile = 16;             // B1/B2: a block's pixels, kTile x kTile
 constexpr int kRegion = 8;            // B1/B2: a warp's pixels, 8 x 8 of its block's tile
 constexpr int kPix = 2;               // B1/B2: pixels a thread holds, adjacent in a row
+constexpr int kTileThreads = kTile * kTile / kPix;  // 128, one per lane of a chunk
+constexpr int kTileWarps = kTileThreads / 32;       // 4, one per region
+constexpr int kListCap = 128;         // B1/B2: faces staged per scan of the list
+constexpr int kBoxDepth = 4;          // B1/B2: chunks' face boxes in flight, this one's included
 constexpr int kBinnedThreads = 256;   // B3: most threads per block
 constexpr int kMaxPixPerThread = 8;   // B3: tile pixels per thread (2048 per tile)
 constexpr float kInv255 = 0x1.010102p-8f;  // float32(1/255), as the TPU kernel multiplies
+static_assert(kTileThreads == kLane && kTileWarps == kGroups &&
+                  (kTile / kRegion) * (kTile / kRegion) == kTileWarps,
+              "B1/B2: a thread per lane, a warp per 32-lane group and per 8 x 8 region");
 
 __device__ __forceinline__ float plane(float x, float y, float a, float b, float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), c);
@@ -172,16 +186,41 @@ struct __align__(16) Staged {
   float4 a, b, c;
 };
 
-// Box [b.x, b.y) x [b.z, b.w) against the pixels [x0, x0 + W) x [y0, y0 + H).
-template <int W, int H>
+// Box [b.x, b.y) x [b.z, b.w) against the pixels [x0, x0 + N) x [y0, y0 + N).
+template <int N>
 __device__ __forceinline__ bool meets(int4 b, int x0, int y0) {
-  return b.x < x0 + W && b.y > x0 && b.z < y0 + H && b.w > y0;
+  return b.x < x0 + N && b.y > x0 && b.z < y0 + N && b.w > y0;
 }
 
-// Where warp q's kRegion x kRegion pixels sit in a TW-wide tile.
-template <int TW>
+// Where warp q's kRegion x kRegion pixels sit in the tile.
 __device__ __forceinline__ int2 region_of(int q) {
-  return make_int2((q % (TW / kRegion)) * kRegion, (q / (TW / kRegion)) * kRegion);
+  return make_int2((q % (kTile / kRegion)) * kRegion, (q / (kTile / kRegion)) * kRegion);
+}
+
+// cp.async: copies from global to shared memory that the issuing thread
+// does not wait for until copies_wait / copies_wait_all.
+__device__ __forceinline__ void copy_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's newest committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void copies_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The staged faces [0, n) in order, for the kPix pixels (x[j], y) of this
@@ -205,97 +244,99 @@ __device__ __forceinline__ void scan_staged(const Staged* list, int n, const flo
 
 // B1/B2's pass 1 of block (tile x, row of tiles y, image z) for the kPix
 // pixels (x[j], y) of this thread (see the note at the head of the file).
-// Every thread of the block must call it.
-template <int TW, int TH>
+// Every thread of the block must call it. Thread t owns lane t of every
+// chunk: its face box comes in kBoxDepth - 1 chunks ahead, and its face's
+// geometry, when the face survives, goes straight into the list, both by
+// cp.async; the block waits for the copies only before it scans the list.
 __device__ __forceinline__ void nearest_face_tile(const int* __restrict__ tiles,
                                                   const int4* __restrict__ chunk_box,
                                                   const int4* __restrict__ face_box,
                                                   const float* __restrict__ geom, int n_chunks,
                                                   const float (&x)[kPix], float y,
                                                   Winner (&w)[kPix]) {
-  constexpr int NT = TW * TH / kPix;
-  constexpr int kWarps = NT / 32;         // one per kRegion x kRegion region
-  constexpr int kPerThread = kLane / NT;  // lanes of a chunk each thread tests
-  static_assert(TW % kRegion == 0 && TH % kRegion == 0 && kLane % NT == 0 &&
-                    kWarps <= kGroups, "whole 8x8 regions, at most one warp per 32 lanes");
   __shared__ Staged s_list[kListCap];
-  __shared__ int s_chunks[NT];
-  __shared__ int s_count[kGroups];
+  __shared__ int4 s_box[kBoxDepth][kLane];  // a ring of chunks' face boxes, lane t thread t's
+  __shared__ int s_chunks[kTileThreads];
+  __shared__ int s_chunk_count[kGroups];
+  __shared__ int s_count[2][kGroups];  // by chunk parity: no barrier between two chunks' counts
   const int tid = threadIdx.x, warp = tid / 32;
   const unsigned below = (1u << (tid % 32)) - 1u;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
   const size_t bc = (size_t)blockIdx.z * n_chunks;
 #pragma unroll
   for (int j = 0; j < kPix; ++j) w[j] = Winner{0, 0};
   const int* range = tiles + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * 2;
   const int c_begin = range[0], c_end = range[1];
   int n_list = 0;
-  for (int base = c_begin; base < c_end; base += NT) {
-    // the chunks of [base, base + NT) whose box meets the tile, in order
+  for (int base = c_begin; base < c_end; base += kTileThreads) {
+    // the chunks of [base, base + 128) whose box meets the tile, in order
     const int c = base + tid;
-    const bool chunk_in = c < c_end && meets<TW, TH>(chunk_box[bc + c], x0, y0);
+    const bool chunk_in = c < c_end && meets<kTile>(chunk_box[bc + c], x0, y0);
     const unsigned cm = __ballot_sync(0xffffffffu, chunk_in);
-    if (tid % 32 == 0) s_count[warp] = __popc(cm);
+    if (tid % 32 == 0) s_chunk_count[warp] = __popc(cm);
     __syncthreads();
     int n_in = 0, before = 0;
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      before += k < warp ? s_count[k] : 0;
-      n_in += s_count[k];
+    for (int k = 0; k < kGroups; ++k) {
+      before += k < warp ? s_chunk_count[k] : 0;
+      n_in += s_chunk_count[k];
     }
     if (chunk_in) s_chunks[before + __popc(cm & below)] = c;
     __syncthreads();
-    for (int i = 0; i < n_in; ++i) {
-      // that chunk's faces whose box meets the tile; lane k*NT + tid is in
-      // 32-lane group k*kWarps + warp
-      const int chunk = s_chunks[i];
-      const size_t f0 = (bc + chunk) * kLane;
-      bool keep[kPerThread];
-      unsigned km[kPerThread];
+    // one commit group a chunk: group i holds chunk i's face box
 #pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        keep[k] = meets<TW, TH>(face_box[f0 + k * NT + tid], x0, y0);
-        km[k] = __ballot_sync(0xffffffffu, keep[k]);
-        if (tid % 32 == 0) s_count[k * kWarps + warp] = __popc(km[k]);
+    for (int i = 0; i < kBoxDepth - 1; ++i) {
+      if (i < n_in) copy_async16(&s_box[i][tid], face_box + (bc + s_chunks[i]) * kLane + tid);
+      copies_commit();
+    }
+    for (int i = 0; i < n_in; ++i) {
+      const int chunk = s_chunks[i];
+      const int ahead = i + kBoxDepth - 1;
+      if (ahead < n_in) {
+        copy_async16(&s_box[ahead % kBoxDepth][tid],
+                     face_box + (bc + s_chunks[ahead]) * kLane + tid);
       }
+      copies_commit();
+      copies_wait<kBoxDepth - 1>();  // chunk i's box, and every copy issued before it
+      const int4 fb = s_box[i % kBoxDepth][tid];
+      const bool keep = meets<kTile>(fb, x0, y0);
+      const unsigned km = __ballot_sync(0xffffffffu, keep);
+      if (tid % 32 == 0) s_count[i % 2][warp] = __popc(km);
       __syncthreads();
-      int counts[kGroups];
-      int total = 0;
+      int total = 0, slot = __popc(km & below);
 #pragma unroll
       for (int g = 0; g < kGroups; ++g) {
-        counts[g] = s_count[g];
-        total += counts[g];
+        const int n = s_count[i % 2][g];
+        slot += g < warp ? n : 0;
+        total += n;
       }
       if (n_list + total > kListCap) {  // the same for every thread
+        copies_wait_all();
+        __syncthreads();
         scan_staged(s_list, n_list, x, y, w, warp);
         __syncthreads();
         n_list = 0;
       }
-#pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        if (!keep[k]) continue;
-        int slot = n_list + __popc(km[k] & below);
-#pragma unroll
-        for (int g = 0; g < kGroups; ++g) slot += g < k * kWarps + warp ? counts[g] : 0;
-        const int lane = k * NT + tid;
-        const int4 fb = face_box[f0 + lane];  // again: fewer registers live across the barrier
+      if (keep) {
         int warps = 0;
 #pragma unroll
-        for (int q = 0; q < kWarps; ++q) {
-          const int2 r = region_of<TW>(q);
-          warps |= meets<kRegion, kRegion>(fb, x0 + r.x, y0 + r.y) << q;
+        for (int q = 0; q < kTileWarps; ++q) {
+          const int2 r = region_of(q);
+          warps |= meets<kRegion>(fb, x0 + r.x, y0 + r.y) << q;
         }
-        const float* gp = geom + f0 * kRows + lane;
-        s_list[slot] = Staged{
-            make_float4(gp[0], gp[kLane], gp[2 * kLane], gp[3 * kLane]),
-            make_float4(gp[4 * kLane], gp[5 * kLane], gp[6 * kLane], gp[7 * kLane]),
-            make_float4(gp[8 * kLane], __int_as_float(chunk), __int_as_float(lane),
-                        __int_as_float(warps))};
+        float* dst = reinterpret_cast<float*>(&s_list[n_list + slot]);
+        const float* gp = geom + (bc + chunk) * kRows * kLane + tid;
+#pragma unroll
+        for (int k = 0; k < kGeomRows; ++k) copy_async4(dst + k, gp + k * kLane);
+        dst[9] = __int_as_float(chunk);
+        dst[10] = __int_as_float(tid);
+        dst[11] = __int_as_float(warps);
       }
-      __syncthreads();
       n_list += total;
     }
   }
+  copies_wait_all();
+  __syncthreads();
   scan_staged(s_list, n_list, x, y, w, warp);
 }
 
@@ -305,10 +346,9 @@ __device__ __forceinline__ float depth_of(const Winner& w) {
 }
 
 // This warp's region: its first column and row in the image.
-template <int TW, int TH>
 __device__ __forceinline__ int2 warp_region() {
-  const int2 r = region_of<TW>(threadIdx.x / 32);
-  return make_int2(blockIdx.x * TW + r.x, blockIdx.y * TH + r.y);
+  const int2 r = region_of(threadIdx.x / 32);
+  return make_int2(blockIdx.x * kTile + r.x, blockIdx.y * kTile + r.y);
 }
 
 // This thread's kPix pixels of its warp's region (origin r): lane l holds
@@ -339,17 +379,16 @@ __device__ __forceinline__ void store_row(float* __restrict__ dst, const float (
 }
 
 // The interleaved r, g, b (v) of this thread's kPix pixels at (px0, py),
-// in the rgb plane of the image, for a block of NT threads. Written pixel by
+// in the rgb plane of the image. Written pixel by
 // pixel every store left a partial sector, so where the warp's whole region
 // lies in the image and is aligned the warp stages its values in shared
 // memory (3 kPix words a lane, in lane order, which is row-major in the
 // region) and writes each row of the region as contiguous 8-byte pairs.
-template <int NT>
 __device__ __forceinline__ void store_rgb(float* __restrict__ rgb_b, const float (&v)[3 * kPix],
                                           int2 r, int px0, int py, int height, int width) {
   constexpr int kPairs = 3 * kPix / 2;             // a lane's 8-byte pairs
   constexpr int kRowPairs = kPairs * kRegion / kPix;  // pairs in a row of the region
-  __shared__ float2 s_rgb[NT * kPairs];
+  __shared__ float2 s_rgb[kTileThreads * kPairs];
   float2* s = s_rgb + (threadIdx.x & ~31) * kPairs;  // this warp's
   const int lane = threadIdx.x % 32;
   const int n = py < height ? min(kPix, width - px0) : 0;
@@ -394,8 +433,7 @@ __device__ __forceinline__ void uv_pack(const float* col_b, const Winner& w, flo
   }
 }
 
-template <int TW, int TH>
-__global__ void __launch_bounds__(TW * TH / kPix)
+__global__ void __launch_bounds__(kTileThreads)
     raster_uv_kernel(const int* __restrict__ tiles,        // (B, TY, 2)
                      const int4* __restrict__ chunk_box,   // (B, NC)
                      const int4* __restrict__ face_box,    // (B, NC, 128)
@@ -406,11 +444,11 @@ __global__ void __launch_bounds__(TW * TH / kPix)
                      int* __restrict__ win,                // (B, H*W) sorted id
                      float* __restrict__ depth_out,        // (B, H*W)
                      int n_chunks, int height, int width) {
-  const int2 r = warp_region<TW, TH>();
+  const int2 r = warp_region();
   float xs[kPix], y;
   const int i0 = region_pixels(r, xs, y);
   Winner ws[kPix];
-  nearest_face_tile<TW, TH>(tiles, chunk_box, face_box, geom, n_chunks, xs, y, ws);
+  nearest_face_tile(tiles, chunk_box, face_box, geom, n_chunks, xs, y, ws);
   const int py = r.y + i0 / kRegion, px0 = r.x + i0 % kRegion;
   if (py >= height) return;
   const float* col_b = col + (size_t)blockIdx.z * n_chunks * kRows * kLane;
@@ -471,8 +509,7 @@ __device__ __forceinline__ void write_rgb(const float* col_b, const Winner& w, f
   depth_out[o] = depth;
 }
 
-template <int TW, int TH>
-__global__ void __launch_bounds__(TW * TH / kPix)
+__global__ void __launch_bounds__(kTileThreads)
     raster_rgb_kernel(const int* __restrict__ tiles,        // (B, TY, 2)
                       const int4* __restrict__ chunk_box,   // (B, NC)
                       const int4* __restrict__ face_box,    // (B, NC, 128)
@@ -481,11 +518,11 @@ __global__ void __launch_bounds__(TW * TH / kPix)
                       float* __restrict__ rgb,              // (B, H*W, 3)
                       float* __restrict__ depth_out,        // (B, H*W)
                       int n_chunks, int height, int width) {
-  const int2 r = warp_region<TW, TH>();
+  const int2 r = warp_region();
   float xs[kPix], y;
   const int i0 = region_pixels(r, xs, y);
   Winner ws[kPix];
-  nearest_face_tile<TW, TH>(tiles, chunk_box, face_box, geom, n_chunks, xs, y, ws);
+  nearest_face_tile(tiles, chunk_box, face_box, geom, n_chunks, xs, y, ws);
   const float* col_b = col + (size_t)blockIdx.z * n_chunks * kRows * kLane;
   float o_rgb[3 * kPix], o_depth[kPix];
 #pragma unroll
@@ -495,7 +532,7 @@ __global__ void __launch_bounds__(TW * TH / kPix)
   }
   const int py = r.y + i0 / kRegion, px0 = r.x + i0 % kRegion;
   const size_t img = (size_t)blockIdx.z * height * width;
-  store_rgb<TW * TH / kPix>(rgb + 3 * img, o_rgb, r, px0, py, height, width);
+  store_rgb(rgb + 3 * img, o_rgb, r, px0, py, height, width);
   if (py < height) {
     store_row(depth_out + img + (size_t)py * width + px0, o_depth, min(kPix, width - px0));
   }
@@ -544,16 +581,8 @@ __global__ void raster_rgb_binned_kernel(const int* __restrict__ ranges,   // (B
   }
 }
 
-// The (TW, TH) instantiations of B1 and B2: RASTER_TILES in
-// artiboost_torch/ops/rasterizer_cuda.py.
-#define RASTER_TILE_DISPATCH(LAUNCH)                         \
-  if (tile_w == 16 && tile_h == 16) return LAUNCH(16, 16);   \
-  if (tile_w == 32 && tile_h == 8) return LAUNCH(32, 8);     \
-  if (tile_w == 8 && tile_h == 8) return LAUNCH(8, 8);       \
-  return (int)cudaErrorInvalidValue
-
-inline dim3 tile_grid(int batch, int height, int width, int tile_w, int tile_h) {
-  return dim3((width + tile_w - 1) / tile_w, (height + tile_h - 1) / tile_h, batch);
+inline dim3 tile_grid(int batch, int height, int width) {
+  return dim3((width + kTile - 1) / kTile, (height + kTile - 1) / kTile, batch);
 }
 
 }  // namespace
@@ -561,33 +590,25 @@ inline dim3 tile_grid(int batch, int height, int width, int tile_w, int tile_h) 
 extern "C" int raster_uv_launch(const int* tiles, const int* chunk_box, const int* face_box,
                                 const float* geom, const float* col, float* quv, float* qsp,
                                 int* win, float* depth, int batch, int n_chunks, int height,
-                                int width, int tile_w, int tile_h, cudaStream_t stream) {
+                                int width, cudaStream_t stream) {
   if (batch <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
-  if (batch > 65535 || (height + tile_h - 1) / tile_h > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid = tile_grid(batch, height, width, tile_w, tile_h);
-#define RASTER_UV_LAUNCH(TW, TH)                                                          \
-  (raster_uv_kernel<TW, TH><<<grid, TW * TH / kPix, 0, stream>>>(                          \
-       tiles, reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box), \
-       geom, col, quv, qsp, win, depth, n_chunks, height, width),                          \
-   (int)cudaGetLastError())
-  RASTER_TILE_DISPATCH(RASTER_UV_LAUNCH);
-#undef RASTER_UV_LAUNCH
+  if (batch > 65535 || (height + kTile - 1) / kTile > 65535) return (int)cudaErrorInvalidValue;
+  raster_uv_kernel<<<tile_grid(batch, height, width), kTileThreads, 0, stream>>>(
+      tiles, reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box),
+      geom, col, quv, qsp, win, depth, n_chunks, height, width);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int raster_rgb_launch(const int* tiles, const int* chunk_box, const int* face_box,
                                  const float* geom, const float* col, float* rgb, float* depth,
-                                 int batch, int n_chunks, int height, int width, int tile_w,
-                                 int tile_h, cudaStream_t stream) {
+                                 int batch, int n_chunks, int height, int width,
+                                 cudaStream_t stream) {
   if (batch <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
-  if (batch > 65535 || (height + tile_h - 1) / tile_h > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid = tile_grid(batch, height, width, tile_w, tile_h);
-#define RASTER_RGB_LAUNCH(TW, TH)                                                         \
-  (raster_rgb_kernel<TW, TH><<<grid, TW * TH / kPix, 0, stream>>>(                         \
-       tiles, reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box), \
-       geom, col, rgb, depth, n_chunks, height, width),                                    \
-   (int)cudaGetLastError())
-  RASTER_TILE_DISPATCH(RASTER_RGB_LAUNCH);
-#undef RASTER_RGB_LAUNCH
+  if (batch > 65535 || (height + kTile - 1) / kTile > 65535) return (int)cudaErrorInvalidValue;
+  raster_rgb_kernel<<<tile_grid(batch, height, width), kTileThreads, 0, stream>>>(
+      tiles, reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box),
+      geom, col, rgb, depth, n_chunks, height, width);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int raster_rgb_binned_launch(const int* ranges, const float* geom, const float* col,

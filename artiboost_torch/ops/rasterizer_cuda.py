@@ -25,10 +25,12 @@ kernel's:
     and (page, shade) unpacked (:430-448).
 
 The uv and Gouraud kernels (B1, B2) do not read that 1-D range table: they
-scan 2-D pixel tiles of ``RASTER_TILE`` and read three tables of their own
-(``tile_ranges``, ``chunk_boxes``, ``face_boxes``), which only narrow the
-faces a tile evaluates to those whose pixel box meets it. Their twins read
-the 1-D table, as the JAX kernel does.
+scan square pixel tiles of side ``RASTER_TILE`` and read three tables of
+their own (``kernel_tables``: ``tile_ranges``, ``chunk_boxes``,
+``face_boxes``), which only narrow the faces a tile evaluates to those
+whose pixel box meets it. ``prepare_raster`` builds them for planes on the
+card. Their twins read the 1-D table, as the JAX kernel does; it is built
+where a twin runs (``RasterInputs.twin_args``).
 
 On a CPU tensor a kernel wrapper runs its plain twin; on a CUDA tensor it
 launches the kernel or raises. Every a*b+c in the twins is two separately
@@ -50,39 +52,41 @@ N_ROWS = 16         # plane rows per chunk
 _LANE_MASK = 0x7F   # low 7 mantissa bits of the depth key carry the lane id
 TILE_PX = 256       # pixels per tile of the 1-D range table (the JAX kernel's tile_px)
 MAX_BINNED_TILE_PX = 2048  # binned tile: 256 threads x kMaxPixPerThread in raster.cu
-RASTER_TILE = (16, 16)  # (tile_w, tile_h) of the uv and Gouraud kernels' 2-D tiles
-RASTER_TILES = ((16, 16), (32, 8), (8, 8))  # the tiles raster.cu instantiates for them
+RASTER_TILE = 16  # side of the uv and Gouraud kernels' square pixel tiles (kTile in raster.cu)
 RASTER_REGION = 8  # each warp of those kernels scans for an 8 x 8 region of its tile (kRegion)
 BOX_LIMIT = 10 ** 9  # boxes are clamped to +-BOX_LIMIT; an empty one is [BOX_LIMIT, -BOX_LIMIT)
 _TWIN_ELEMS = 1 << 24  # bound on the twin's (images, pixels, 128) temporaries
 
 
 class RasterInputs(NamedTuple):
-    """What a kernel reads, plus the sort permutation for the unsort.
-    ``tile`` = (tile_w, tile_h) is the kernel's pixel tile. The binned
-    raster's arrays carry a band axis after the batch axis and its tile is
-    (xbin_w, tile_rows). The uv and Gouraud kernels read the three tables
-    after ``tile`` in place of ``ranges``, which their twins read."""
+    """What a kernel and its twin read, plus the sort permutation for the
+    unsort. The binned raster's arrays carry a band axis after the batch
+    axis, its ``ranges`` are keyed by (image, band, y-tile) and ``tile`` is
+    (xbin_w, tile_rows). The uv and Gouraud layout has ``tile`` () and no
+    ``ranges``: it keeps the chunk ``extents`` that its twins' 1-D range
+    table is built from (``twin_args``), and on the card the kernels' own
+    tables (``kernel_tables``)."""
 
-    ranges: torch.Tensor  # (B, T, 2) int32 chunk range per TILE_PX tile; binned (B, NB, YT, 2)
     geom: torch.Tensor    # (B, NC, 16, 128) f32 edge + 1/z planes; binned (B, NB, NC, 16, 128)
     col: torch.Tensor     # (B, NC, 16, 128) f32 attribute/z planes; binned as geom
     order: torch.Tensor   # (B, F) int64 sorted -> caller face id; binned (B, NB, F)
     height: int
     width: int
-    tile: Tuple[int, int]
+    ranges: Optional[torch.Tensor] = None  # binned: (B, NB, YT, 2) int32 chunk range per tile
+    tile: Tuple[int, ...] = ()
+    extents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # ``_chunk_extents``
     tiles: Optional[torch.Tensor] = None      # (B, TY, 2) int32 chunk range per row of tiles
     chunk_box: Optional[torch.Tensor] = None  # (B, NC, 4) int32 (x0, x1, y0, y1)
     face_box: Optional[torch.Tensor] = None   # (B, NC, 128, 4) int32 (x0, x1, y0, y1)
 
-    def tables(self) -> tuple:
-        """The uv and Gouraud kernels' own tables; () for the binned raster."""
-        return () if self.tiles is None else (self.tiles, self.chunk_box, self.face_box)
-
-    def args(self) -> tuple:
-        """The kernel wrapper's arguments."""
-        return (self.ranges, self.geom, self.col, self.height, self.width) + tuple(self.tile) \
-            + self.tables()
+    def twin_args(self) -> tuple:
+        """The plain twin's arguments. The uv and Gouraud twins' 1-D range
+        table (``chunk_ranges``) is built here, where a twin runs."""
+        if self.tile:
+            return (self.ranges, self.geom, self.col, self.height, self.width) + self.tile
+        n_tiles = -(-self.height * self.width // TILE_PX)
+        return (_pixel_tile_ranges(self.extents, n_tiles, self.width), self.geom, self.col,
+                self.height, self.width)
 
 
 def _sort_faces(sf: ScreenFace) -> Tuple[ScreenFace, torch.Tensor]:
@@ -129,16 +133,20 @@ def pack_faces(sf: ScreenFace, n_chunks: int) -> Tuple[torch.Tensor, torch.Tenso
             col.reshape(shape).transpose(2, 3).contiguous())
 
 
-def chunk_ranges(sf: ScreenFace, n_chunks: int, n_tiles: int, width: int,
-                 extents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+def chunk_ranges(sf: ScreenFace, n_chunks: int, n_tiles: int, width: int) -> torch.Tensor:
     """(B, T, 2) int32 [start, end) of the sorted chunks whose y-extent can
     touch each TILE_PX-pixel tile (:383-384: tile_ymax is the last row's
-    index plus 1); ``extents``: ``_chunk_extents(sf, n_chunks)`` when at
-    hand."""
-    tile = torch.arange(n_tiles, device=sf.valid.device)
+    index plus 1)."""
+    return _pixel_tile_ranges(_chunk_extents(sf, n_chunks), n_tiles, width)
+
+
+def _pixel_tile_ranges(extents: Tuple[torch.Tensor, torch.Tensor], n_tiles: int,
+                       width: int) -> torch.Tensor:
+    """``chunk_ranges`` from ``_chunk_extents``."""
+    tile = torch.arange(n_tiles, device=extents[0].device)
     tile_ymin = torch.div(tile * TILE_PX, width, rounding_mode="floor").float()
     tile_ymax = torch.div((tile + 1) * TILE_PX - 1, width, rounding_mode="floor").float() + 1.0
-    return _ranges_for_rows(extents or _chunk_extents(sf, n_chunks), tile_ymin, tile_ymax)
+    return _ranges_for_rows(extents, tile_ymin, tile_ymax)
 
 
 def _ranges_for_rows(extents: Tuple[torch.Tensor, torch.Tensor], tile_ymin: torch.Tensor,
@@ -169,15 +177,13 @@ def _chunk_extents(sf: ScreenFace, n_chunks: int) -> Tuple[torch.Tensor, torch.T
     return chunk_ymin, torch.cummax(chunk_ymax, dim=1).values
 
 
-def tile_ranges(extents: Tuple[torch.Tensor, torch.Tensor], height: int,
-                tile_h: int) -> torch.Tensor:
+def tile_ranges(extents: Tuple[torch.Tensor, torch.Tensor], height: int) -> torch.Tensor:
     """(B, TY, 2) int32 [start, end) of the sorted chunks whose y-extent can
-    touch the rows [ty tile_h, (ty + 1) tile_h) of a row of 2-D tiles (the
-    rule of ``chunk_ranges``, tile_ymax the last row's index plus 1), from
-    ``_chunk_extents``."""
-    ty = torch.arange((height + tile_h - 1) // tile_h, dtype=torch.float32,
-                      device=extents[0].device)
-    return _ranges_for_rows(extents, ty * tile_h, (ty + 1) * tile_h)
+    touch the rows [ty RASTER_TILE, (ty + 1) RASTER_TILE) of a row of tiles
+    (the rule of ``chunk_ranges``, tile_ymax the last row's index plus 1),
+    from ``_chunk_extents``."""
+    ty = torch.arange(-(-height // RASTER_TILE), dtype=torch.float32, device=extents[0].device)
+    return _ranges_for_rows(extents, ty * RASTER_TILE, (ty + 1) * RASTER_TILE)
 
 
 def face_boxes(geom: torch.Tensor) -> torch.Tensor:
@@ -210,32 +216,33 @@ def chunk_boxes(face_box: torch.Tensor) -> torch.Tensor:
                         face_box[..., 2].amin(-1), face_box[..., 3].amax(-1)], -1).contiguous()
 
 
+def kernel_tables(inp: RasterInputs) -> RasterInputs:
+    """``inp`` of the uv and Gouraud layout with the kernels' own tables:
+    each row of tiles' chunk range (``tile_ranges``), each face's pixel box
+    (``face_boxes``) and each chunk's (``chunk_boxes``)."""
+    fbox = face_boxes(inp.geom)
+    return inp._replace(tiles=tile_ranges(inp.extents, inp.height),
+                        chunk_box=chunk_boxes(fbox), face_box=fbox)
+
+
 def prepare_raster(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
                    faces: torch.Tensor, face_valid: Optional[torch.Tensor],
-                   height: int, width: int, cull_backfaces: bool = False,
-                   tile: Tuple[int, int] = RASTER_TILE) -> RasterInputs:
-    """Pre-kernel work: screen faces, stable y-sort, packing, the 1-D range
-    table and the kernel's tables for its 2-D tiles of ``tile`` = (tile_w,
-    tile_h), one of ``RASTER_TILES``. vert_attrs are (u, v, shade, page)
-    per vertex for the uv kernel (page constant per face) or (r, g, b) for
-    the Gouraud kernel."""
+                   height: int, width: int, cull_backfaces: bool = False) -> RasterInputs:
+    """Pre-kernel work: screen faces, stable y-sort, packing and the chunk
+    extents, and for planes on the card the kernels' tables
+    (``kernel_tables``). vert_attrs are (u, v, shade, page) per vertex for
+    the uv kernel (page constant per face) or (r, g, b) for the Gouraud
+    kernel."""
     if vert_attrs.shape[-1] not in (3, 4):
         raise ValueError("the raster takes (r, g, b) or (u, v, shade, page) attrs, "
                          f"got {tuple(vert_attrs.shape)}")
-    if tuple(tile) not in RASTER_TILES:
-        raise ValueError(f"the raster's tile {tuple(tile)} is not one of {RASTER_TILES}")
-    F = faces.shape[-2]
-    n_chunks = (F + LANE - 1) // LANE
-    n_tiles = (height * width + TILE_PX - 1) // TILE_PX
+    n_chunks = (faces.shape[-2] + LANE - 1) // LANE
     sf = build_screen_faces(verts_screen, vert_attrs, faces, face_valid,
                             cull_backfaces=cull_backfaces)
     sf, order = _sort_faces(sf)
     geom, col = pack_faces(sf, n_chunks)
-    extents = _chunk_extents(sf, n_chunks)
-    ranges = chunk_ranges(sf, n_chunks, n_tiles, width, extents)
-    fbox = face_boxes(geom)
-    return RasterInputs(ranges, geom, col, order, height, width, tuple(tile),
-                        tile_ranges(extents, height, tile[1]), chunk_boxes(fbox), fbox)
+    inp = RasterInputs(geom, col, order, height, width, extents=_chunk_extents(sf, n_chunks))
+    return kernel_tables(inp) if geom.is_cuda else inp
 
 
 def prepare_raster_binned(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
@@ -272,8 +279,8 @@ def prepare_raster_binned(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
     ranges = _ranges_for_rows(_chunk_extents(sfb, n_chunks), ty * tile_rows,
                               (ty + 1) * tile_rows)
     shape = (B, n_bands, n_chunks, N_ROWS, LANE)
-    return RasterInputs(ranges.reshape(B, n_bands, n_ytiles, 2), geom.reshape(shape),
-                        col.reshape(shape), order.reshape(B, n_bands, F), height, width,
+    return RasterInputs(geom.reshape(shape), col.reshape(shape), order.reshape(B, n_bands, F),
+                        height, width, ranges.reshape(B, n_bands, n_ytiles, 2),
                         (xbin_w, tile_rows))
 
 
@@ -357,10 +364,9 @@ def _winner_planes(ranges, geom, col, height, width, tile: Tuple[int, ...] = ())
 
 
 def rasterize_batch_uv_torch(ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                             height: int, width: int, *_kernel_tables) -> Tuple[torch.Tensor, ...]:
+                             height: int, width: int) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch twin of the uv kernel: -> (quv, qsp, win_sorted int32,
-    depth), each (B, H*W). It scans the 1-D range table and ignores the
-    kernel's tile and tables (``RasterInputs.args()``)."""
+    depth), each (B, H*W)."""
     x, y, hitm, depth, win_sorted, fc = _winner_planes(ranges, geom, col, height, width)
 
     def interp(k):
@@ -391,11 +397,9 @@ def _gouraud_pass2(x, y, hitm, depth, fc) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def rasterize_batch_rgb_torch(ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                              height: int, width: int,
-                              *_kernel_tables) -> Tuple[torch.Tensor, torch.Tensor]:
+                              height: int, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of the Gouraud kernel: -> (rgb (B, H*W, 3) in
-    {k * float32(1/255)}, depth (B, H*W)); the kernel's tile and tables are
-    ignored, as by the uv twin."""
+    {k * float32(1/255)}, depth (B, H*W))."""
     x, y, hitm, depth, _, fc = _winner_planes(ranges, geom, col, height, width)
     return _gouraud_pass2(x, y, hitm, depth, fc)
 
@@ -424,10 +428,10 @@ class RasterLibrary:
         if self._lib is None:
             path, self.build_log = build_library(self.source)
             lib = ctypes.CDLL(str(path))
-            lib.raster_uv_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+            lib.raster_uv_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                                              + [ctypes.c_void_p])
             lib.raster_uv_launch.restype = ctypes.c_int
-            lib.raster_rgb_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            lib.raster_rgb_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                                               + [ctypes.c_void_p])
             lib.raster_rgb_launch.restype = ctypes.c_int
             lib.raster_rgb_binned_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
@@ -438,24 +442,19 @@ class RasterLibrary:
 
 
 def _check_inputs(name: str, ranges, geom, col, height: int, width: int,
-                  tile: Tuple[int, ...] = ()):
-    """What a kernel wrapper refuses before a launch. ``tile`` () is the
-    1-D layout, (xbin_w, tile_rows) the binned one (``RasterInputs``)."""
-    lead = "(B, NB, YT" if tile else "(B, T"
-    if ranges.dim() != (4 if tile else 3) or geom.dim() != ranges.dim() + 1:
-        raise ValueError(f"{name}: ranges {lead}, 2) and geom/col with one more axis")
+                  tile: Tuple[int, int]):
+    """What the binned kernel's wrapper refuses before a launch, ``tile`` =
+    (xbin_w, tile_rows) (``prepare_raster_binned``)."""
+    if ranges.dim() != 4 or geom.dim() != 5:
+        raise ValueError(f"{name}: ranges (B, NB, YT, 2) and geom/col with one more axis")
     expect = tuple(ranges.shape[:-2]) + (geom.shape[-3], N_ROWS, LANE)
     if (ranges.shape[-1] != 2 or tuple(geom.shape) != expect or tuple(col.shape) != expect
             or ranges.dtype != torch.int32 or geom.dtype != torch.float32
             or col.dtype != torch.float32
             or not all(t.is_contiguous() and t.device == geom.device
                        for t in (ranges, geom, col))):
-        raise ValueError(f"{name}: ranges {lead}, 2) int32 and geom/col {expect} "
+        raise ValueError(f"{name}: ranges (B, NB, YT, 2) int32 and geom/col {expect} "
                          "float32, contiguous, on one CUDA device")
-    if not tile:
-        if ranges.shape[1] * TILE_PX < height * width:
-            raise ValueError(f"{name}: the range table covers fewer pixels than the image")
-        return
     xbin_w, tile_rows = tile
     if (xbin_w < 1 or tile_rows < 1 or ranges.shape[1] != -(-width // xbin_w)
             or ranges.shape[2] != -(-height // tile_rows)):
@@ -466,32 +465,32 @@ def _check_inputs(name: str, ranges, geom, col, height: int, width: int,
                          f"{MAX_BINNED_TILE_PX} pixels")
 
 
-def _check_tables(name: str, geom, height: int, width: int, tile: Tuple[int, ...],
-                  tiles, chunk_box, face_box):
-    """What the uv and Gouraud kernel wrappers refuse in their 2-D tile and
-    tables (``prepare_raster``) before a launch."""
-    if tuple(tile) not in RASTER_TILES:
-        raise ValueError(f"{name}: tile {tuple(tile)} is not one of {RASTER_TILES}")
-    B, NC = geom.shape[:2]
-    want = ((tiles, (B, -(-height // tile[1]), 2)), (chunk_box, (B, NC, 4)),
-            (face_box, (B, NC, LANE, 4)))
-    for t, shape in want:
-        if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape
-                or t.dtype != torch.int32 or not t.is_contiguous() or t.device != geom.device
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name}: the tile tables must be int32 (B, TY, 2), (B, NC, 4) and "
-                             f"(B, NC, {LANE}, 4) = {[s for _, s in want]}, contiguous and "
-                             "16-byte aligned on the planes' device")
+def _check_tables(name: str, inp: RasterInputs):
+    """What the uv and Gouraud kernel wrappers refuse before a launch: planes
+    and tables other than ``prepare_raster``'s on the card."""
+    B, NC = inp.geom.shape[:2]
+    want = ((inp.geom, (B, NC, N_ROWS, LANE), torch.float32),
+            (inp.col, (B, NC, N_ROWS, LANE), torch.float32),
+            (inp.tiles, (B, -(-inp.height // RASTER_TILE), 2), torch.int32),
+            (inp.chunk_box, (B, NC, 4), torch.int32),
+            (inp.face_box, (B, NC, LANE, 4), torch.int32))
+    for t, shape, dtype in want:
+        if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape or t.dtype != dtype
+                or not t.is_contiguous() or t.device != inp.geom.device or t.data_ptr() % 16):
+            raise ValueError(f"{name}: geom and col (B, NC, 16, 128) float32 and the tile tables "
+                             f"int32 (B, TY, 2), (B, NC, 4) and (B, NC, {LANE}, 4) = "
+                             f"{[s for _, s, _ in want]}, contiguous and 16-byte aligned "
+                             "on one CUDA device (``kernel_tables``)")
 
 
 class RasterKernel:
-    """ctypes wrapper of one launch function of ``raster.cu``; ``launches``
-    counts kernel launches (and nothing else). ``twin`` is the plain
-    PyTorch version the wrapper runs for CPU tensors. Every kernel takes its
-    pixel tile (tile_w, tile_h) after the image size, as
-    ``RasterInputs.args()`` gives it; the uv and Gouraud kernels take their
-    three tables after it, the binned kernel none. A binned tile may hold at
-    most MAX_BINNED_TILE_PX pixels."""
+    """ctypes wrapper of one launch function of ``raster.cu``, called on a
+    ``RasterInputs``; ``launches`` counts kernel launches (and nothing
+    else). ``twin`` is the plain PyTorch version, called on
+    ``RasterInputs.twin_args()``, that the wrapper runs for CPU tensors.
+    The binned kernel takes ``prepare_raster_binned``'s inputs, whose tile
+    may hold at most MAX_BINNED_TILE_PX pixels; the uv and Gouraud kernels
+    take ``prepare_raster``'s, with the kernels' tables."""
 
     def __init__(self, name: str, library: RasterLibrary, twin):
         self.name, self.library, self.twin = name, library, twin
@@ -504,45 +503,43 @@ class RasterKernel:
     def build(self):
         return self.library.get()
 
-    def __call__(self, ranges: torch.Tensor, geom: torch.Tensor, col: torch.Tensor,
-                 height: int, width: int, tile_w: int, tile_h: int,
-                 *tables: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def __call__(self, inp: RasterInputs) -> Tuple[torch.Tensor, ...]:
         binned = self.name == "raster_rgb_binned"
-        if len(tables) != (0 if binned else 3):
-            raise ValueError(f"{self.name}: got {len(tables)} tables after the tile; "
-                             "raster_uv and raster_rgb take (tiles, chunk_box, face_box), "
-                             "only raster_rgb_binned takes (xbin_w, tile_rows) alone")
-        tile = (tile_w, tile_h)
+        if bool(inp.tile) != binned:
+            raise ValueError(f"{self.name}: got inputs with tile {inp.tile}; only "
+                             "raster_rgb_binned takes prepare_raster_binned's (xbin_w, tile_rows)")
+        geom, col = inp.geom, inp.col
         if geom.device.type == "cpu":
-            return self.twin(ranges, geom, col, height, width, *tile, *tables)
+            return self.twin(*inp.twin_args())
         if geom.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {geom.device}")
-        _check_inputs(self.name, ranges, geom, col, height, width, tile if binned else ())
-        if not binned:
-            _check_tables(self.name, geom, height, width, tile, *tables)
+        if binned:
+            _check_inputs(self.name, inp.ranges, geom, col, inp.height, inp.width, inp.tile)
+        else:
+            _check_tables(self.name, inp)
         lib = self.build()
-        B, n_pix = ranges.shape[0], height * width
+        B, n_pix = geom.shape[0], inp.height * inp.width
         f32 = dict(dtype=torch.float32, device=geom.device)
         stream = torch.cuda.current_stream(geom.device).cuda_stream
-        head = tuple(t.data_ptr() for t in tables) + (geom.data_ptr(), col.data_ptr())
+        ptrs = lambda *ts: tuple(t.data_ptr() for t in ts)  # noqa: E731
+        tables = () if binned else ptrs(inp.tiles, inp.chunk_box, inp.face_box)
         if self.name == "raster_uv":
             quv, qsp, depth = (torch.empty((B, n_pix), **f32) for _ in range(3))
             win = torch.empty((B, n_pix), dtype=torch.int32, device=geom.device)
-            err = lib.raster_uv_launch(*head, quv.data_ptr(), qsp.data_ptr(), win.data_ptr(),
-                                       depth.data_ptr(), B, geom.shape[1], height, width,
-                                       *tile, stream)
+            err = lib.raster_uv_launch(*tables, *ptrs(geom, col, quv, qsp, win, depth), B,
+                                       geom.shape[1], inp.height, inp.width, stream)
             out = (quv, qsp, win, depth)
         else:
             rgb = torch.empty((B, n_pix, 3), **f32)
             depth = torch.empty((B, n_pix), **f32)
             if self.name == "raster_rgb":
-                err = lib.raster_rgb_launch(*head, rgb.data_ptr(), depth.data_ptr(), B,
-                                            geom.shape[1], height, width, *tile, stream)
+                err = lib.raster_rgb_launch(*tables, *ptrs(geom, col, rgb, depth), B,
+                                            geom.shape[1], inp.height, inp.width, stream)
             else:
-                err = lib.raster_rgb_binned_launch(ranges.data_ptr(), *head, rgb.data_ptr(),
-                                                   depth.data_ptr(), B, ranges.shape[1],
-                                                   ranges.shape[2], geom.shape[2], height,
-                                                   width, *tile, stream)
+                err = lib.raster_rgb_binned_launch(*ptrs(inp.ranges, geom, col, rgb, depth), B,
+                                                   geom.shape[1], inp.ranges.shape[2],
+                                                   geom.shape[2], inp.height, inp.width,
+                                                   *inp.tile, stream)
             out = (rgb, depth)
         if err != 0:
             raise RuntimeError(f"{self.name}_launch failed: CUDA error {err}")
@@ -576,56 +573,6 @@ def finish_rgb_raster(inp: RasterInputs, rgb, depth):
     return rgb.reshape(B, inp.height, inp.width, 3), depth.reshape(B, inp.height, inp.width)
 
 
-def scanned_faces(inp: RasterInputs) -> torch.Tensor:
-    """(B, RY, RX, NC, 128) bool: the faces the uv and Gouraud kernels
-    evaluate in each RASTER_REGION x RASTER_REGION region of the image (one
-    warp's pixels): those of the chunks in its tile row's range whose chunk
-    box meets its tile and whose own box meets the region."""
-    tw, th = inp.tile
-    r = RASTER_REGION
-    B, NC = inp.geom.shape[:2]
-    dev = inp.geom.device
-    x0 = torch.arange(-(-inp.width // tw) * (tw // r), device=dev) * r  # region origins
-    y0 = torch.arange(-(-inp.height // th) * (th // r), device=dev) * r
-
-    def meets(box, xs, ys, w, h):  # (B, NC, n, 4) -> (B, RY, RX, NC, n)
-        box = box[:, None]
-        xs, ys = xs[:, None, None], ys[:, None, None]
-        in_x = (box[..., 0] < xs + w) & (box[..., 1] > xs)  # (B, RX, NC, n)
-        in_y = (box[..., 2] < ys + h) & (box[..., 3] > ys)  # (B, RY, NC, n)
-        return in_y[:, :, None] & in_x[:, None]
-
-    tile_x0, tile_y0 = x0 - x0 % tw, y0 - y0 % th
-    c = torch.arange(NC, device=dev)
-    in_range = (c >= inp.tiles[..., :1]) & (c < inp.tiles[..., 1:])  # (B, TY, NC)
-    in_range = in_range[:, torch.div(y0, th, rounding_mode="floor")]  # (B, RY, NC)
-    chunk_in = meets(inp.chunk_box[:, :, None], tile_x0, tile_y0, tw, th)
-    return (in_range[:, :, None, :, None] & chunk_in
-            & meets(inp.face_box, x0, y0, r, r))
-
-
-def raster_work(inp: RasterInputs) -> Tuple[int, int, int]:
-    """What a raster kernel's inputs need, for its bound: -> (bytes read:
-    each array the kernel reads, once; bytes written: 16 a pixel; pixel x
-    face-box pairs: for every face, the pixels of its ``face_boxes`` box in
-    the image, in its band's columns for the binned raster)."""
-    arrays = inp.tables() + (inp.geom, inp.col) if inp.tiles is not None \
-        else (inp.ranges, inp.geom, inp.col)
-    read = sum(t.numel() * t.element_size() for t in arrays)
-    B, H, W = inp.geom.shape[0], inp.height, inp.width
-    if inp.tiles is not None:
-        box = inp.face_box.long()
-        nx = box[..., 1].clamp(max=W) - box[..., 0].clamp(min=0)
-    else:  # binned: boxes (B, NB, NC, 128, 4), band k over columns [k xbin_w, (k + 1) xbin_w)
-        xbin_w, n_bands = inp.tile[0], inp.geom.shape[1]
-        box = face_boxes(inp.geom.flatten(0, 1)).unflatten(0, (B, n_bands)).long()
-        x_lo = (torch.arange(n_bands, device=box.device) * xbin_w)[:, None, None]
-        nx = (torch.minimum(box[..., 1], (x_lo + xbin_w).clamp(max=W))
-              - torch.maximum(box[..., 0], x_lo))
-    ny = box[..., 3].clamp(max=H) - box[..., 2].clamp(min=0)
-    return read, 16 * B * H * W, int((nx.clamp_min(0) * ny.clamp_min(0)).sum())
-
-
 def rasterize_batch_uv(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
                        faces: torch.Tensor, face_valid: Optional[torch.Tensor],
                        height: int, width: int, cull_backfaces: bool = False):
@@ -633,7 +580,7 @@ def rasterize_batch_uv(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
     win (caller face id), depth (0 = background))."""
     inp = prepare_raster(verts_screen, vert_attrs, faces, face_valid, height, width,
                          cull_backfaces)
-    return finish_uv_raster(inp, *raster_uv(*inp.args()))
+    return finish_uv_raster(inp, *raster_uv(inp))
 
 
 def rasterize_batch_rgb(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
@@ -647,7 +594,7 @@ def rasterize_batch_rgb(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
     if xbin_w is not None and width > xbin_w:
         inp = prepare_raster_binned(verts_screen, vert_colors, faces, face_valid, height,
                                     width, xbin_w, tile_rows, cull_backfaces)
-        return finish_rgb_raster(inp, *raster_rgb_binned(*inp.args()))
+        return finish_rgb_raster(inp, *raster_rgb_binned(inp))
     inp = prepare_raster(verts_screen, vert_colors, faces, face_valid, height, width,
                          cull_backfaces)
-    return finish_rgb_raster(inp, *raster_rgb(*inp.args()))
+    return finish_rgb_raster(inp, *raster_rgb(inp))

@@ -5,25 +5,28 @@ Phases, each fatal on failure:
   1. device line (nvidia-smi name and power limit, torch device name);
   2. build every CUDA kernel: ``artiboost_torch/csrc/raster.cu`` holds the
      three raster kernels (uv B1, Gouraud rgb B2, x-binned Gouraud B3);
-     ptxas registers, spills and shared memory of each;
+     ptxas registers, spills and shared memory of each, and from
+     ``cuobjdump -sass`` each kernel's shared loads against its float adds
+     and multiplies, in the kernel and in its innermost loop of float work;
   3. each kernel against its plain PyTorch twin on the card, bit for bit:
      the seeded scenes of ``artiboost_torch/ops/raster_scenes.py`` (random
      triangles at F = 60 and F = 700, invalid faces, a two-triangle depth
-     tie) with back-face culling off and on, B1 and B2 at every 2-D tile of
-     ``RASTER_TILES``, B3 at (xbin_w, tile_rows) = (16, 8), (8, 4), (16, 5)
-     and (32, 8); B3 on the parity gate's binned scene at its (32, 8); the
-     uv kernel at every tile on one val batch of the main path (B = 128 at
-     112x112); the rgb kernel at every tile and B3 at (64, 8), (64, 16) and
-     (128, 16) on one SyntheticHO render chunk at full width (B = 16 at
-     512x512, hand plus an object of up to 1024 faces), B3 also against B2
-     there (depth within 1e-6; colour equal but at depth-key ties, which
-     are counted). Kernel times (CUDA events over a CUDA graph of 50
-     launches, so the wrapper's host work is not timed), plain times and
-     bounds at those shapes. The bound is the larger of the bytes (every
-     array the kernel reads, once, and 16 B written a pixel, at 3.35 TB/s)
-     and the operations (pixel x face-box pairs x 25, at 67 TFLOP/s FP32);
-     beside it, the time of zeroing the kernel's outputs (the writes
-     alone), the 1-D scan's chunks per pixel and the face evaluations per
+     tie) with back-face culling off and on, B1 and B2, B3 at (xbin_w,
+     tile_rows) = (16, 8), (8, 4), (16, 5) and (32, 8); B3 on the parity
+     gate's binned scene at its (32, 8); the uv kernel on one val batch of
+     the main path (B = 128 at 112x112); the rgb kernel and B3 at (64, 8),
+     (64, 16) and (128, 16) on one SyntheticHO render chunk at full width
+     (B = 16 at 512x512, hand plus an object of up to 1024 faces), B3 also
+     against B2 there (depth within 1e-6; colour equal but at depth-key
+     ties, which are counted). Kernel times (CUDA events over a CUDA graph
+     of 50 launches, so the wrapper's host work is not timed), plain times
+     and bounds at those shapes. The bound is the larger of the bytes (the
+     rows the kernel reads of every valid face and the range table, once,
+     and 16 B written a pixel, at 3.35 TB/s; ``raster_measure.raster_work``)
+     and the operations (pixel x face-box pairs x 25, at 67 TFLOP/s FP32).
+     Beside it: the time of zeroing the kernel's outputs (the writes
+     alone), B1's and B2's time with every face invalid (nothing staged or
+     scanned), the 1-D scan's chunks per pixel and the face evaluations per
      pixel that the kernel's tables leave;
   4. the val-and-mining slice at full width (config
      ho3dv2_clasbased_artiboost.yaml: ResNet34 in bfloat16, 224x224, batch
@@ -106,17 +109,17 @@ def cuda_ms(fn, reps: int, graph: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(kernel, finish, inp, torch, plain=None):
-    """Kernel vs its plain twin on one prepared input (``plain``: the twin's
-    finished outputs when they are at hand): -> (max abs err, equal, plain)."""
-    k = finish(inp, *kernel(*inp.args()))
-    p = plain if plain is not None else finish(inp, *kernel.twin(*inp.args()))
+def compare(kernel, finish, inp, torch):
+    """Kernel vs its plain twin on one prepared input: -> (max abs err,
+    equal)."""
+    k = finish(inp, *kernel(inp))
+    p = finish(inp, *kernel.twin(*inp.twin_args()))
     torch.cuda.synchronize()
     err, equal = 0.0, True
     for a, b in zip(k, p):
         equal &= bool(torch.equal(a, b))
         err = max(err, float((a.double() - b.double()).abs().max()))
-    return err, equal, p
+    return err, equal
 
 
 def capture(module, name, fn):
@@ -171,62 +174,70 @@ def check_refined(records, label: str, torch):
           f"mean |d tsl| {float(d_tsl.mean()) * 1e3:.3f} mm", flush=True)
 
 
-def scanned_chunk_pixels(inp, torch) -> float:
-    """Sum over the tiles of the range table of (in-image pixels) x (chunks
-    in the tile's range): the pass-1 work of a scan of every chunk in range,
-    B3's design and the uv and Gouraud kernels' first one."""
-    from artiboost_torch.ops.rasterizer_cuda import TILE_PX
+def sass_lines(path) -> list:
+    """Per kernel of the library at ``path``, from ``cuobjdump -sass``: its
+    shared loads, float adds, multiplies and fused multiply-adds, in all and
+    in its innermost loop of float work (``raster_measure.sass_counts``)."""
+    from artiboost_torch.ops.raster_measure import sass_counts
 
-    span = (inp.ranges[..., 1] - inp.ranges[..., 0]).double()
-    dev = span.device
-    if inp.tiles is None:  # binned (B, NB, YT): tiles of tile_rows x xbin_w, cropped
-        xbin_w, tile_rows = inp.tile
-        cols = torch.clamp(inp.width - torch.arange(span.shape[1], device=dev) * xbin_w,
-                           0, xbin_w)
-        rows = torch.clamp(inp.height - torch.arange(span.shape[2], device=dev) * tile_rows,
-                           0, tile_rows)
-        return float((span * (cols[:, None] * rows[None, :]).double()).sum())
-    n_pix = inp.height * inp.width
-    tile_pix = torch.clamp(n_pix - torch.arange(span.shape[1], device=dev) * TILE_PX,
-                           0, TILE_PX).double()
-    return float((span * tile_pix).sum())
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True)
+    check(res.returncode == 0, f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
 
+    def mix(n):
+        lds = sum(v for k, v in n.items() if k.startswith("LDS"))
+        return (f"LDS {lds} ({n['LDS.128']} of 128 bits), FADD {n['FADD']}, FMUL {n['FMUL']}, "
+                f"FFMA {n['FFMA']}, LDGSTS {n['LDGSTS']}, BAR {n['BAR']}")
 
-def face_evaluations(inp, torch) -> float:
-    """Face evaluations of this input's pass 1: for the uv and Gouraud
-    kernels, each warp region's pixels in the image times the faces the
-    tables leave it (``scanned_faces``); for B3, 128 a chunk in range."""
-    from artiboost_torch.ops.rasterizer_cuda import RASTER_REGION as r, scanned_faces
-
-    if inp.tiles is None:
-        return scanned_chunk_pixels(inp, torch) * 128
-    n_faces = scanned_faces(inp).sum((-1, -2)).double()  # (B, RY, RX)
-    dev = n_faces.device
-    cols = torch.clamp(inp.width - torch.arange(n_faces.shape[2], device=dev) * r, 0, r)
-    rows = torch.clamp(inp.height - torch.arange(n_faces.shape[1], device=dev) * r, 0, r)
-    return float((n_faces * (rows[:, None] * cols[None, :]).double()).sum())
+    lines = []
+    for fn, c in sass_counts(res.stdout).items():
+        name = fn
+        for k in ("raster_uv_kernel", "raster_rgb_kernel", "raster_rgb_binned_kernel"):
+            if k in fn:  # the mangled name -> the kernel's, with B3's P
+                rest = fn.split(k, 1)[1]
+                name = k + (f"<P={rest[3:rest.index('E')]}>" if rest.startswith("ILi") else "")
+        lines.append(f"  sass {name}: {sum(c['all'].values())} instructions: {mix(c['all'])}; "
+                     f"innermost loop of float work, {c['loop_len']} instructions: "
+                     f"{mix(c['loop'])}")
+    return lines
 
 
 def timing(kernel, inp, reps_plain: int, card: str, torch):
     """Kernel time (a CUDA graph of 50 launches), the time of zeroing its
-    outputs (the writes alone), the twin's time (host loop, ``reps_plain``
-    calls; 0 skips it) and the bound at this input."""
-    from artiboost_torch.ops.rasterizer_cuda import raster_work
+    outputs (the writes alone), for the uv and Gouraud kernels their time
+    with every face invalid (tables read, no face staged or scanned,
+    background written), the twin's time (host loop, ``reps_plain`` calls)
+    and the bound at this input."""
+    from artiboost_torch.ops.raster_measure import (
+        face_evaluations,
+        raster_work,
+        scanned_chunk_pixels,
+    )
+    from artiboost_torch.ops.rasterizer_cuda import RASTER_TILE, kernel_tables
 
-    ms = cuda_ms(lambda: kernel(*inp.args()), 50, graph=True)
-    outs = kernel(*inp.args())
+    ms = cuda_ms(lambda: kernel(inp), 50, graph=True)
+    outs = kernel(inp)
     fill_ms = cuda_ms(lambda: [t.zero_() for t in outs], 50, graph=True)  # the writes alone
-    plain_ms = cuda_ms(lambda: kernel.twin(*inp.args()), reps_plain) if reps_plain else None
+    empty = ""
+    if not inp.tile:
+        blank = inp._replace(geom=inp.geom.clone())
+        blank.geom[..., 4, :] = -1e30  # ec0' of an invalid face
+        blank = kernel_tables(blank)
+        empty = (f", with every face invalid {cuda_ms(lambda: kernel(blank), 50, graph=True):.4f}"
+                 " ms")
+    twin_args = inp.twin_args()
+    plain_ms = cuda_ms(lambda: kernel.twin(*twin_args), reps_plain)
     B, n_pix = inp.geom.shape[0], inp.height * inp.width
-    read, written, pairs = raster_work(inp)
+    read, written, pairs = raster_work(inp, 4 if kernel.name == "raster_uv" else 3)
     t_bytes = (read + written) / H100_BYTES_PER_S
     t_ops = pairs * RASTER_OPS_PER_LANE / H100_FP32_OPS_PER_S
     bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
-    chunk_px, evals = scanned_chunk_pixels(inp, torch), face_evaluations(inp, torch)
-    plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+    chunk_px, evals = scanned_chunk_pixels(inp), face_evaluations(inp)
+    tile = inp.tile[::-1] or (RASTER_TILE, RASTER_TILE)
     print(f"{kernel.name} timing ({card}): B={B} {inp.height}x{inp.width} "
-          f"F={inp.order.shape[-1]} tile {inp.tile[1]}x{inp.tile[0]}: kernel {ms:.4f} ms, "
-          f"zeroing its outputs {fill_ms:.4f} ms, plain {plain}, bound {bound_ms:.4f} ms by "
+          f"F={inp.order.shape[-1]} tile {tile[0]}x{tile[1]}: kernel {ms:.4f} ms, "
+          f"zeroing its outputs {fill_ms:.4f} ms{empty}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by "
           f"{bound_by} ({bound_ms / ms:.1%} of it reached; {read} B read, {written} B written, "
           f"{pairs} pixel x face-box pairs = {pairs / (B * n_pix):.3f} a pixel); 1-D scan "
           f"{chunk_px / (B * n_pix):.3f} chunks/pixel, {evals / (B * n_pix):.3f} face "
@@ -346,9 +357,8 @@ def main():
     from artiboost_torch.metrics.val_metric import ValMetricMean3DEPE2
     from artiboost_torch.models.arch import build_arch
     from artiboost_torch.ops.raster_scenes import raster_check_scenes, rgb_attrs
+    from artiboost_torch.ops.cuda_build import BUILD_DIR
     from artiboost_torch.ops.rasterizer_cuda import (
-        RASTER_TILE,
-        RASTER_TILES,
         finish_rgb_raster,
         finish_uv_raster,
         prepare_raster,
@@ -389,36 +399,27 @@ def main():
         if ("registers" in line or "spill" in line or "Compiling entry" in line
                 or "smem" in line):
             print(f"  ptxas: {line.strip()}")
+    for line in sass_lines(BUILD_DIR / "libraster.so"):
+        print(line, flush=True)
 
     # ---- 3. kernels against their plain twins ----
     kernels = {k.name: {"kernel": k, "max_abs_err": 0.0} for k in all_kernels}
     finish = {"raster_uv": finish_uv_raster, "raster_rgb": finish_rgb_raster,
               "raster_rgb_binned": finish_rgb_raster}
 
-    def hold(kernel, inp, label, plain=None):
-        err, equal, plain = compare(kernel, finish[kernel.name], inp, torch, plain)
+    def hold(kernel, inp, label):
+        err, equal = compare(kernel, finish[kernel.name], inp, torch)
         kernels[kernel.name]["max_abs_err"] = max(kernels[kernel.name]["max_abs_err"], err)
         print(f"{kernel.name} {label}: bit-equal={equal} max_abs_err={err}", flush=True)
         check(equal, f"{kernel.name} differs from its plain twin on {label}")
-        return plain
-
-    def hold_tiles(kernel, make, label):
-        """B1 or B2 at every tile of RASTER_TILES (make(tile) -> inputs)
-        against one run of the twin, which reads no tile -> {tile: inputs}."""
-        inps, plain = {}, None
-        for tile in RASTER_TILES:
-            inps[tile] = make(tile)
-            plain = hold(kernel, inps[tile], f"{label} tile {tile[1]}x{tile[0]}", plain)
-        return inps
 
     for name, sc in raster_check_scenes().items():
         t = {k: torch.from_numpy(sc[k]).to(dev) for k in ("verts", "attrs", "faces", "valid")}
         rgb = torch.from_numpy(rgb_attrs(sc)).to(dev)
         for cull in (False, True):
             for kernel, attrs in ((raster_uv, t["attrs"]), (raster_rgb, rgb)):
-                hold_tiles(kernel, lambda tile: prepare_raster(
-                    t["verts"], attrs, t["faces"], t["valid"], sc["H"], sc["W"],
-                    cull_backfaces=cull, tile=tile), f"{name} cull={cull}")
+                hold(kernel, prepare_raster(t["verts"], attrs, t["faces"], t["valid"], sc["H"],
+                                            sc["W"], cull_backfaces=cull), f"{name} cull={cull}")
             for xbin_w, tile_rows in BINNED_CHECK_TILES:
                 hold(raster_rgb_binned,
                      prepare_raster_binned(t["verts"], rgb, t["faces"], t["valid"], sc["H"],
@@ -435,33 +436,26 @@ def main():
     probe = ArtiBoostLoader(cfg=slice_config(val_cfg), batch_size=128, seed=0, device=dev)
     probe.prepare_val()
     args, kw = capture(renderer, "rasterize_batch_uv", lambda: next(probe.iter_val()))
-    inps = hold_tiles(raster_uv, lambda tile: prepare_raster(*args, tile=tile, **kw),
-                      "main-path val batch")
-    for tile, inp in inps.items():
-        timed = timing(raster_uv, inp, 5 if tile == RASTER_TILE else 0, card, torch)
-        if tile == RASTER_TILE:
-            kernels["raster_uv"].update(timed)
-    del probe, inps
+    inp = prepare_raster(*args, **kw)
+    hold(raster_uv, inp, "main-path val batch")
+    kernels["raster_uv"].update(timing(raster_uv, inp, 5, card, torch))
+    del probe, inp
 
     synth_cfg = {"TYPE": "SyntheticHO", "DATA_SPLIT": "train", "AUG": True, "RAW_SIZE": 512,
                  "AUG_PARAM": {"SCALE_JIT": 0.1, "CENTER_JIT": 0.1, "MAX_ROT": 0.2}}
     args, kw = capture(renderer, "rasterize_batch_rgb", lambda: build_dataset(
         dict(synth_cfg, N_SAMPLES=16), cfg["DATA_PRESET"], device=dev))
-    inps = hold_tiles(raster_rgb, lambda tile: prepare_raster(*args, tile=tile, **kw),
-                      "SyntheticHO chunk")
-    for tile, inp in inps.items():
-        timed = timing(raster_rgb, inp, 3 if tile == RASTER_TILE else 0, card, torch)
-        if tile == RASTER_TILE:
-            kernels["raster_rgb"].update(timed)
-    inp = inps[RASTER_TILE]
+    inp = prepare_raster(*args, **kw)
+    hold(raster_rgb, inp, "SyntheticHO chunk")
+    kernels["raster_rgb"].update(timing(raster_rgb, inp, 3, card, torch))
     chunk = f"SyntheticHO chunk B={inp.geom.shape[0]} {inp.height}x{inp.width}"
-    rgb_1d, depth_1d = finish_rgb_raster(inp, *raster_rgb(*inp.args()))
-    del inps
+    rgb_1d, depth_1d = finish_rgb_raster(inp, *raster_rgb(inp))
+    del inp
     for xbin_w, tile_rows in BINNED_FULL_TILES:
         tile = f"tile {tile_rows}x{xbin_w}"
         binp = prepare_raster_binned(*args, xbin_w=xbin_w, tile_rows=tile_rows, **kw)
         hold(raster_rgb_binned, binp, f"{chunk} {tile}")
-        rgb_b, depth_b = finish_rgb_raster(binp, *raster_rgb_binned(*binp.args()))
+        rgb_b, depth_b = finish_rgb_raster(binp, *raster_rgb_binned(binp))
         # The per-band sort gives a face another chunk and lane, so where two
         # faces tie on the truncated depth key the lane order can hand the
         # pixel to the other face: depth stays bit-equal, the colour may not.

@@ -182,15 +182,15 @@ def test_binned_kernel_input_checks():
     with pytest.raises(ValueError, match="int32"):
         rc._check_inputs("b3", inp.ranges.long(), inp.geom, inp.col, 24, 40, (16, 5))
     one = rc.prepare_raster(*args, 24, 40)  # the 1-D layout takes no tile
-    rc._check_inputs("b2", one.ranges, one.geom, one.col, 24, 40)
+    assert one.tile == ()
     with pytest.raises(ValueError, match="one more axis"):
-        rc._check_inputs("b2", inp.ranges, inp.geom, inp.col, 24, 40)
+        rc._check_inputs("b3", inp.ranges, one.geom, one.col, 24, 40, (16, 5))
     # one wrapper class for the three kernels: only the binned one takes a tile
     with pytest.raises(ValueError, match="only raster_rgb_binned"):
-        rc.raster_rgb(*inp.args())
+        rc.raster_rgb(inp)
     with pytest.raises(ValueError, match="only raster_rgb_binned"):
-        rc.raster_rgb_binned(*one.args())
-    rgb, depth = rc.raster_rgb_binned(*inp.args())  # on the CPU: the twin
+        rc.raster_rgb_binned(one)
+    rgb, depth = rc.raster_rgb_binned(inp)  # on the CPU: the twin
     assert rgb.shape == (2, 24 * 40, 3) and depth.shape == (2, 24 * 40)
     big = rc.prepare_raster_binned(*args, 24, 300, 128, 17)
     assert rc.MAX_BINNED_TILE_PX == 2048 and 128 * 17 > 2048

@@ -39,13 +39,13 @@
 // B1 and B2: one block of 128 threads per (16 x 16 pixel tile, image), one
 // warp per 8 x 8 region of the tile, each thread holding 2 adjacent pixels
 // of one row (PERF.md holds the 8 x 32 and 8 x 8 tiles, measured slower
-// on the card). The inputs need far less work than a scan of every chunk in
-// the tile's y-range: a face can only hit pixels inside its own box, and a
-// mesh face's box is a few hundred pixels. So the block culls before it
+// on the card). The inputs need far less work than a scan of every chunk in the
+// tile's y-range: a face can only hit pixels inside its own box, and a mesh
+// face's box is a few hundred pixels. So the block culls before it
 // evaluates:
-//   1. the chunks whose box (`chunk_box`, the union of their faces' boxes)
-//      misses the tile are skipped; 128 chunks are tested at once, so no
-//      range table is read first;
+//   1. the chunks of its row of tiles' range (`tiles`, the y-sorted rule of
+//      the 1-D table at the tile's rows) whose box (`chunk_box`) misses the
+//      tile are skipped;
 //   2. of each other chunk, thread t tests lane t's box (`face_box`: its
 //      vertices solved from the planes in float64, widened by 2 px) against
 //      the tile; the survivors are compacted in (chunk, lane) order, by
@@ -248,7 +248,8 @@ __device__ __forceinline__ void scan_staged(const Staged* list, int n, const flo
 // chunk: its face box comes in kBoxDepth - 1 chunks ahead, and its face's
 // geometry, when the face survives, goes straight into the list, both by
 // cp.async; the block waits for the copies only before it scans the list.
-__device__ __forceinline__ void nearest_face_tile(const int4* __restrict__ chunk_box,
+__device__ __forceinline__ void nearest_face_tile(const int* __restrict__ tiles,
+                                                  const int4* __restrict__ chunk_box,
                                                   const int4* __restrict__ face_box,
                                                   const float* __restrict__ geom, int n_chunks,
                                                   const float (&x)[kPix], float y,
@@ -264,11 +265,13 @@ __device__ __forceinline__ void nearest_face_tile(const int4* __restrict__ chunk
   const size_t bc = (size_t)blockIdx.z * n_chunks;
 #pragma unroll
   for (int j = 0; j < kPix; ++j) w[j] = Winner{0, 0};
+  const int* range = tiles + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * 2;
+  const int c_begin = range[0], c_end = range[1];
   int n_list = 0;
-  for (int base = 0; base < n_chunks; base += kTileThreads) {
+  for (int base = c_begin; base < c_end; base += kTileThreads) {
     // the chunks of [base, base + 128) whose box meets the tile, in order
     const int c = base + tid;
-    const bool chunk_in = c < n_chunks && meets<kTile>(chunk_box[bc + c], x0, y0);
+    const bool chunk_in = c < c_end && meets<kTile>(chunk_box[bc + c], x0, y0);
     const unsigned cm = __ballot_sync(0xffffffffu, chunk_in);
     if (tid % 32 == 0) s_chunk_count[warp] = __popc(cm);
     __syncthreads();
@@ -431,7 +434,8 @@ __device__ __forceinline__ void uv_pack(const float* col_b, const Winner& w, flo
 }
 
 __global__ void __launch_bounds__(kTileThreads)
-    raster_uv_kernel(const int4* __restrict__ chunk_box,   // (B, NC)
+    raster_uv_kernel(const int* __restrict__ tiles,        // (B, TY, 2)
+                     const int4* __restrict__ chunk_box,   // (B, NC)
                      const int4* __restrict__ face_box,    // (B, NC, 128)
                      const float* __restrict__ geom,       // (B, NC, 16, 128)
                      const float* __restrict__ col,        // (B, NC, 16, 128)
@@ -444,7 +448,7 @@ __global__ void __launch_bounds__(kTileThreads)
   float xs[kPix], y;
   const int i0 = region_pixels(r, xs, y);
   Winner ws[kPix];
-  nearest_face_tile(chunk_box, face_box, geom, n_chunks, xs, y, ws);
+  nearest_face_tile(tiles, chunk_box, face_box, geom, n_chunks, xs, y, ws);
   const int py = r.y + i0 / kRegion, px0 = r.x + i0 % kRegion;
   if (py >= height) return;
   const float* col_b = col + (size_t)blockIdx.z * n_chunks * kRows * kLane;
@@ -506,7 +510,8 @@ __device__ __forceinline__ void write_rgb(const float* col_b, const Winner& w, f
 }
 
 __global__ void __launch_bounds__(kTileThreads)
-    raster_rgb_kernel(const int4* __restrict__ chunk_box,   // (B, NC)
+    raster_rgb_kernel(const int* __restrict__ tiles,        // (B, TY, 2)
+                      const int4* __restrict__ chunk_box,   // (B, NC)
                       const int4* __restrict__ face_box,    // (B, NC, 128)
                       const float* __restrict__ geom,       // (B, NC, 16, 128)
                       const float* __restrict__ col,        // (B, NC, 16, 128)
@@ -517,7 +522,7 @@ __global__ void __launch_bounds__(kTileThreads)
   float xs[kPix], y;
   const int i0 = region_pixels(r, xs, y);
   Winner ws[kPix];
-  nearest_face_tile(chunk_box, face_box, geom, n_chunks, xs, y, ws);
+  nearest_face_tile(tiles, chunk_box, face_box, geom, n_chunks, xs, y, ws);
   const float* col_b = col + (size_t)blockIdx.z * n_chunks * kRows * kLane;
   float o_rgb[3 * kPix], o_depth[kPix];
 #pragma unroll
@@ -582,26 +587,26 @@ inline dim3 tile_grid(int batch, int height, int width) {
 
 }  // namespace
 
-extern "C" int raster_uv_launch(const int* chunk_box, const int* face_box,
+extern "C" int raster_uv_launch(const int* tiles, const int* chunk_box, const int* face_box,
                                 const float* geom, const float* col, float* quv, float* qsp,
                                 int* win, float* depth, int batch, int n_chunks, int height,
                                 int width, cudaStream_t stream) {
   if (batch <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
   if (batch > 65535 || (height + kTile - 1) / kTile > 65535) return (int)cudaErrorInvalidValue;
   raster_uv_kernel<<<tile_grid(batch, height, width), kTileThreads, 0, stream>>>(
-      reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box),
+      tiles, reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box),
       geom, col, quv, qsp, win, depth, n_chunks, height, width);
   return (int)cudaGetLastError();
 }
 
-extern "C" int raster_rgb_launch(const int* chunk_box, const int* face_box,
+extern "C" int raster_rgb_launch(const int* tiles, const int* chunk_box, const int* face_box,
                                  const float* geom, const float* col, float* rgb, float* depth,
                                  int batch, int n_chunks, int height, int width,
                                  cudaStream_t stream) {
   if (batch <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
   if (batch > 65535 || (height + kTile - 1) / kTile > 65535) return (int)cudaErrorInvalidValue;
   raster_rgb_kernel<<<tile_grid(batch, height, width), kTileThreads, 0, stream>>>(
-      reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box),
+      tiles, reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box),
       geom, col, rgb, depth, n_chunks, height, width);
   return (int)cudaGetLastError();
 }

@@ -61,10 +61,11 @@ def raster_work(inp: RasterInputs, n_attr: int) -> Tuple[int, int, int]:
 def scanned_faces(inp: RasterInputs) -> torch.Tensor:
     """(B, RY, RX, NC, 128) bool: the faces the uv and Gouraud kernels
     evaluate in each RASTER_REGION x RASTER_REGION region of the image (one
-    warp's pixels): those of the chunks whose box meets its tile and whose
-    own box meets the region. ``inp`` carries the kernels' tables
-    (``kernel_tables``)."""
+    warp's pixels): those of the chunks in its tile row's range whose chunk
+    box meets its tile and whose own box meets the region. ``inp`` carries
+    the kernels' tables (``kernel_tables``)."""
     t, r = RASTER_TILE, RASTER_REGION
+    B, NC = inp.geom.shape[:2]
     dev = inp.geom.device
     x0 = torch.arange(-(-inp.width // t) * (t // r), device=dev) * r  # region origins
     y0 = torch.arange(-(-inp.height // t) * (t // r), device=dev) * r
@@ -76,8 +77,11 @@ def scanned_faces(inp: RasterInputs) -> torch.Tensor:
         in_y = (box[..., 2] < ys + n) & (box[..., 3] > ys)  # (B, RY, NC, m)
         return in_y[:, :, None] & in_x[:, None]
 
+    c = torch.arange(NC, device=dev)
+    in_range = (c >= inp.tiles[..., :1]) & (c < inp.tiles[..., 1:])  # (B, TY, NC)
+    in_range = in_range[:, torch.div(y0, t, rounding_mode="floor")]  # (B, RY, NC)
     chunk_in = meets(inp.chunk_box[:, :, None], x0 - x0 % t, y0 - y0 % t, t)
-    return chunk_in & meets(inp.face_box, x0, y0, r)
+    return in_range[:, :, None, :, None] & chunk_in & meets(inp.face_box, x0, y0, r)
 
 
 def scanned_chunk_pixels(inp: RasterInputs) -> float:

@@ -25,9 +25,9 @@ kernel's:
     and (page, shade) unpacked (:430-448).
 
 The uv and Gouraud kernels (B1, B2) do not read that 1-D range table: they
-scan square pixel tiles of side ``RASTER_TILE`` and read two tables of
-their own (``kernel_tables``: ``face_boxes`` and their reduction
-``chunk_boxes``), which only narrow the faces a tile evaluates to those
+scan square pixel tiles of side ``RASTER_TILE`` and read three tables of
+their own (``kernel_tables``: ``tile_ranges``, ``chunk_boxes``,
+``face_boxes``), which only narrow the faces a tile evaluates to those
 whose pixel box meets it. ``prepare_raster`` builds them for planes on the
 card. Their twins read the 1-D table, as the JAX kernel does; it is built
 where a twin runs (``RasterInputs.twin_args``).
@@ -75,6 +75,7 @@ class RasterInputs(NamedTuple):
     ranges: Optional[torch.Tensor] = None  # binned: (B, NB, YT, 2) int32 chunk range per tile
     tile: Tuple[int, ...] = ()
     extents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # ``_chunk_extents``
+    tiles: Optional[torch.Tensor] = None      # (B, TY, 2) int32 chunk range per row of tiles
     chunk_box: Optional[torch.Tensor] = None  # (B, NC, 4) int32 (x0, x1, y0, y1)
     face_box: Optional[torch.Tensor] = None   # (B, NC, 128, 4) int32 (x0, x1, y0, y1)
 
@@ -176,6 +177,15 @@ def _chunk_extents(sf: ScreenFace, n_chunks: int) -> Tuple[torch.Tensor, torch.T
     return chunk_ymin, torch.cummax(chunk_ymax, dim=1).values
 
 
+def tile_ranges(extents: Tuple[torch.Tensor, torch.Tensor], height: int) -> torch.Tensor:
+    """(B, TY, 2) int32 [start, end) of the sorted chunks whose y-extent can
+    touch the rows [ty RASTER_TILE, (ty + 1) RASTER_TILE) of a row of tiles
+    (the rule of ``chunk_ranges``, tile_ymax the last row's index plus 1),
+    from ``_chunk_extents``."""
+    ty = torch.arange(-(-height // RASTER_TILE), dtype=torch.float32, device=extents[0].device)
+    return _ranges_for_rows(extents, ty * RASTER_TILE, (ty + 1) * RASTER_TILE)
+
+
 def face_boxes(geom: torch.Tensor) -> torch.Tensor:
     """(B, NC, 16, 128) packed planes -> (B, NC, 128, 4) int32 pixel box
     [x0, x1) x [y0, y1) that holds every pixel the face can cover: its
@@ -208,10 +218,11 @@ def chunk_boxes(face_box: torch.Tensor) -> torch.Tensor:
 
 def kernel_tables(inp: RasterInputs) -> RasterInputs:
     """``inp`` of the uv and Gouraud layout with the kernels' own tables:
-    each face's pixel box (``face_boxes``) and each chunk's
-    (``chunk_boxes``)."""
+    each row of tiles' chunk range (``tile_ranges``), each face's pixel box
+    (``face_boxes``) and each chunk's (``chunk_boxes``)."""
     fbox = face_boxes(inp.geom)
-    return inp._replace(chunk_box=chunk_boxes(fbox), face_box=fbox)
+    return inp._replace(tiles=tile_ranges(inp.extents, inp.height),
+                        chunk_box=chunk_boxes(fbox), face_box=fbox)
 
 
 def prepare_raster(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
@@ -417,10 +428,10 @@ class RasterLibrary:
         if self._lib is None:
             path, self.build_log = build_library(self.source)
             lib = ctypes.CDLL(str(path))
-            lib.raster_uv_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            lib.raster_uv_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                                              + [ctypes.c_void_p])
             lib.raster_uv_launch.restype = ctypes.c_int
-            lib.raster_rgb_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+            lib.raster_rgb_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                                               + [ctypes.c_void_p])
             lib.raster_rgb_launch.restype = ctypes.c_int
             lib.raster_rgb_binned_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
@@ -460,13 +471,14 @@ def _check_tables(name: str, inp: RasterInputs):
     B, NC = inp.geom.shape[:2]
     want = ((inp.geom, (B, NC, N_ROWS, LANE), torch.float32),
             (inp.col, (B, NC, N_ROWS, LANE), torch.float32),
+            (inp.tiles, (B, -(-inp.height // RASTER_TILE), 2), torch.int32),
             (inp.chunk_box, (B, NC, 4), torch.int32),
             (inp.face_box, (B, NC, LANE, 4), torch.int32))
     for t, shape, dtype in want:
         if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape or t.dtype != dtype
                 or not t.is_contiguous() or t.device != inp.geom.device or t.data_ptr() % 16):
-            raise ValueError(f"{name}: geom and col (B, NC, 16, 128) float32 and the box tables "
-                             f"int32 (B, NC, 4) and (B, NC, {LANE}, 4) = "
+            raise ValueError(f"{name}: geom and col (B, NC, 16, 128) float32 and the tile tables "
+                             f"int32 (B, TY, 2), (B, NC, 4) and (B, NC, {LANE}, 4) = "
                              f"{[s for _, s, _ in want]}, contiguous and 16-byte aligned "
                              "on one CUDA device (``kernel_tables``)")
 
@@ -510,7 +522,7 @@ class RasterKernel:
         f32 = dict(dtype=torch.float32, device=geom.device)
         stream = torch.cuda.current_stream(geom.device).cuda_stream
         ptrs = lambda *ts: tuple(t.data_ptr() for t in ts)  # noqa: E731
-        tables = () if binned else ptrs(inp.chunk_box, inp.face_box)
+        tables = () if binned else ptrs(inp.tiles, inp.chunk_box, inp.face_box)
         if self.name == "raster_uv":
             quv, qsp, depth = (torch.empty((B, n_pix), **f32) for _ in range(3))
             win = torch.empty((B, n_pix), dtype=torch.int32, device=geom.device)

@@ -1,6 +1,6 @@
 """The culling of the uv and Gouraud raster kernels (B1, B2) on the CPU: the
-per-face and per-chunk boxes, their use by the 16 x 16 tiles, a plain
-rehearsal of the kernels' schedule (``artiboost_torch/ops/rasterizer_cuda.py``), and what
+per-face boxes, the 16 x 16 tiles' tables and a plain rehearsal of the
+kernels' schedule (``artiboost_torch/ops/rasterizer_cuda.py``), and what
 their measurements count (``artiboost_torch/ops/raster_measure.py``).
 
   (a) every (pixel, face) pair that a scan of every face hits (the kernels'
@@ -9,8 +9,8 @@ their measurements count (``artiboost_torch/ops/raster_measure.py``).
   (b) for every tile, the faces its tables let each warp scan for its
       8 x 8 region (``scanned_faces``) hold every face that hits a pixel of
       the region;
-  (c) a rehearsal of the kernel's schedule: per tile, the faces that pass
-      the chunk and face box tests, in
+  (c) a rehearsal of the kernel's schedule: per tile, the faces of the
+      chunks in its row's range that pass the chunk and face box tests, in
       (chunk, lane) order; per region, those of them whose box meets it,
       scanned with strict > on the depth key. They give the twins' winners,
       and the twins' outputs from those winners are bit-equal to
@@ -174,10 +174,11 @@ def _rehearsal_lists(inp):
     lists = []
     for b in range(inp.geom.shape[0]):
         for ty in range(ty_n):
+            c0, c1 = inp.tiles[b, ty].tolist()
             for tx in range(tx_n):
                 x0, y0 = tx * T, ty * T
                 ids = []
-                for c in range(inp.geom.shape[1]):
+                for c in range(c0, c1):
                     cb = inp.chunk_box[b, c].tolist()
                     if not (cb[0] < x0 + T and cb[1] > x0 and cb[2] < y0 + T and cb[3] > y0):
                         continue
@@ -320,6 +321,7 @@ def test_raster_work_counted_by_hand():
     assert inp.face_box[0, 0, :3].tolist() == [[8, 16, 2, 10], [18, 26, 10, 18],
                                                  [lim, -lim, lim, -lim]]
     assert inp.chunk_box[0, 0].tolist() == [8, 26, 2, 18]
+    assert inp.tiles.tolist() == [[[0, 1]]]  # one row of 16 x 16 tiles, one chunk
     # read: 2 valid faces x (9 geometry rows + 9 r, g, b rows, or 12 u, v, shade,
     # page rows) x 4 B, and the twins' 1-D range table, ceil(384 / 256) = 2 tiles
     # x 2 int32; no padded lane, no kernel table; written: 16 B for each of 384 pixels
@@ -367,18 +369,19 @@ def test_tile_table_checks():
     wrappers refuse in their tables."""
     _, rgb_args, kw = _raster_args("small_cull0")
     cpu = rc.prepare_raster(*rgb_args, **kw)  # planes on the CPU: a twin runs, no kernel table
-    assert cpu.chunk_box is None and cpu.face_box is None
+    assert cpu.tiles is None and cpu.chunk_box is None and cpu.face_box is None
     assert cpu.ranges is None and cpu.tile == () and cpu.extents is not None
     inp = rc.kernel_tables(cpu)
     rc._check_tables("b2", inp)
-    with pytest.raises(ValueError, match="box tables"):
+    with pytest.raises(ValueError, match="tile tables"):
         rc._check_tables("b2", cpu)
-    with pytest.raises(ValueError, match="box tables"):
-        rc._check_tables("b2", inp._replace(chunk_box=inp.chunk_box.long()))
-    with pytest.raises(ValueError, match="box tables"):  # one box a face, not a chunk
-        rc._check_tables("b2", inp._replace(chunk_box=inp.face_box))
-    with pytest.raises(ValueError, match="box tables"):
-        rc._check_tables("b2", inp._replace(face_box=inp.face_box[..., ::2, :]))
+    with pytest.raises(ValueError, match="tile tables"):
+        rc._check_tables("b2", inp._replace(tiles=inp.tiles.long()))
+    rows8 = torch.arange(float(-(-inp.height // 8))) * 8
+    assert rows8.numel() != inp.tiles.shape[1]
+    with pytest.raises(ValueError, match="tile tables"):  # a table of 8-row tiles
+        rc._check_tables("b2", inp._replace(tiles=rc._ranges_for_rows(inp.extents, rows8,
+                                                                      rows8 + 8)))
     # on the CPU the wrapper runs the twin on the 1-D table it builds, tables or none
     want = rc.rasterize_batch_rgb_torch(*inp.twin_args())
     sf, _ = rc._sort_faces(rc.build_screen_faces(*rgb_args[:4], **kw))

@@ -58,11 +58,13 @@
 //      the winner, its chunk and its lane are those of the full scan (a
 //      face whose box misses a pixel cannot hit it, so it never changes that
 //      pixel's key). A full list is scanned and refilled.
-// The loads of steps 1-2 are cp.async copies: the face boxes of the next
-// kBoxDepth - 1 chunks are in flight while a chunk is culled, and a
-// survivor's 9 geometry rows go from global memory straight into the list;
-// the block waits for them only before it scans. Each chunk then costs one
-// barrier and no wait on global memory once the ring is full.
+// The loads of steps 1-2 wait on global memory twice a chunk (its lanes'
+// boxes, then the survivors' rows). Staging them by cp.async instead, the
+// boxes three chunks ahead and the rows straight into the list, ran B2 3 %
+// faster and B1 3-5 % slower (NVIDIA H100 80GB HBM3, 700.00 W), so the loads
+// stay plain (PERF.md, PR 4). The loop does not wait on shared memory either: per face a warp
+// issues 3 LDS.128 against 9 FMUL and 16 FADD for its 2 pixels (the SASS
+// counts of chip_smoke.py).
 // The products y*b are shared by a thread's pixels: the same operands, the
 // same rounding. Tensor cores do not fit this work: a plane value is
 // ((x*a)_r + (y*b)_r)_r + c rounded after each operation, and wgmma (TF32
@@ -103,7 +105,6 @@ constexpr int kPix = 2;               // B1/B2: pixels a thread holds, adjacent 
 constexpr int kTileThreads = kTile * kTile / kPix;  // 128, one per lane of a chunk
 constexpr int kTileWarps = kTileThreads / 32;       // 4, one per region
 constexpr int kListCap = 128;         // B1/B2: faces staged per scan of the list
-constexpr int kBoxDepth = 4;          // B1/B2: chunks' face boxes in flight, this one's included
 constexpr int kBinnedThreads = 256;   // B3: most threads per block
 constexpr int kMaxPixPerThread = 8;   // B3: tile pixels per thread (2048 per tile)
 constexpr float kInv255 = 0x1.010102p-8f;  // float32(1/255), as the TPU kernel multiplies
@@ -197,32 +198,6 @@ __device__ __forceinline__ int2 region_of(int q) {
   return make_int2((q % (kTile / kRegion)) * kRegion, (q / (kTile / kRegion)) * kRegion);
 }
 
-// cp.async: copies from global to shared memory that the issuing thread
-// does not wait for until copies_wait / copies_wait_all.
-__device__ __forceinline__ void copy_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void copies_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Until at most N of this thread's newest committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void copies_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // The staged faces [0, n) in order, for the kPix pixels (x[j], y) of this
 // thread; the warp skips a face whose box misses its region.
 __device__ __forceinline__ void scan_staged(const Staged* list, int n, const float (&x)[kPix],
@@ -245,9 +220,7 @@ __device__ __forceinline__ void scan_staged(const Staged* list, int n, const flo
 // B1/B2's pass 1 of block (tile x, row of tiles y, image z) for the kPix
 // pixels (x[j], y) of this thread (see the note at the head of the file).
 // Every thread of the block must call it. Thread t owns lane t of every
-// chunk: its face box comes in kBoxDepth - 1 chunks ahead, and its face's
-// geometry, when the face survives, goes straight into the list, both by
-// cp.async; the block waits for the copies only before it scans the list.
+// chunk.
 __device__ __forceinline__ void nearest_face_tile(const int* __restrict__ tiles,
                                                   const int4* __restrict__ chunk_box,
                                                   const int4* __restrict__ face_box,
@@ -255,10 +228,8 @@ __device__ __forceinline__ void nearest_face_tile(const int* __restrict__ tiles,
                                                   const float (&x)[kPix], float y,
                                                   Winner (&w)[kPix]) {
   __shared__ Staged s_list[kListCap];
-  __shared__ int4 s_box[kBoxDepth][kLane];  // a ring of chunks' face boxes, lane t thread t's
   __shared__ int s_chunks[kTileThreads];
-  __shared__ int s_chunk_count[kGroups];
-  __shared__ int s_count[2][kGroups];  // by chunk parity: no barrier between two chunks' counts
+  __shared__ int s_count[kGroups];
   const int tid = threadIdx.x, warp = tid / 32;
   const unsigned below = (1u << (tid % 32)) - 1u;
   const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
@@ -273,70 +244,54 @@ __device__ __forceinline__ void nearest_face_tile(const int* __restrict__ tiles,
     const int c = base + tid;
     const bool chunk_in = c < c_end && meets<kTile>(chunk_box[bc + c], x0, y0);
     const unsigned cm = __ballot_sync(0xffffffffu, chunk_in);
-    if (tid % 32 == 0) s_chunk_count[warp] = __popc(cm);
+    if (tid % 32 == 0) s_count[warp] = __popc(cm);
     __syncthreads();
     int n_in = 0, before = 0;
 #pragma unroll
     for (int k = 0; k < kGroups; ++k) {
-      before += k < warp ? s_chunk_count[k] : 0;
-      n_in += s_chunk_count[k];
+      before += k < warp ? s_count[k] : 0;
+      n_in += s_count[k];
     }
     if (chunk_in) s_chunks[before + __popc(cm & below)] = c;
     __syncthreads();
-    // one commit group a chunk: group i holds chunk i's face box
-#pragma unroll
-    for (int i = 0; i < kBoxDepth - 1; ++i) {
-      if (i < n_in) copy_async16(&s_box[i][tid], face_box + (bc + s_chunks[i]) * kLane + tid);
-      copies_commit();
-    }
     for (int i = 0; i < n_in; ++i) {
+      // that chunk's faces whose box meets the tile
       const int chunk = s_chunks[i];
-      const int ahead = i + kBoxDepth - 1;
-      if (ahead < n_in) {
-        copy_async16(&s_box[ahead % kBoxDepth][tid],
-                     face_box + (bc + s_chunks[ahead]) * kLane + tid);
-      }
-      copies_commit();
-      copies_wait<kBoxDepth - 1>();  // chunk i's box, and every copy issued before it
-      const int4 fb = s_box[i % kBoxDepth][tid];
-      const bool keep = meets<kTile>(fb, x0, y0);
+      const size_t f0 = (bc + chunk) * kLane;
+      const bool keep = meets<kTile>(face_box[f0 + tid], x0, y0);
       const unsigned km = __ballot_sync(0xffffffffu, keep);
-      if (tid % 32 == 0) s_count[i % 2][warp] = __popc(km);
+      if (tid % 32 == 0) s_count[warp] = __popc(km);
       __syncthreads();
       int total = 0, slot = __popc(km & below);
 #pragma unroll
       for (int g = 0; g < kGroups; ++g) {
-        const int n = s_count[i % 2][g];
-        slot += g < warp ? n : 0;
-        total += n;
+        slot += g < warp ? s_count[g] : 0;
+        total += s_count[g];
       }
       if (n_list + total > kListCap) {  // the same for every thread
-        copies_wait_all();
-        __syncthreads();
         scan_staged(s_list, n_list, x, y, w, warp);
         __syncthreads();
         n_list = 0;
       }
       if (keep) {
+        const int4 fb = face_box[f0 + tid];  // again: fewer registers live across the barrier
         int warps = 0;
 #pragma unroll
         for (int q = 0; q < kTileWarps; ++q) {
           const int2 r = region_of(q);
           warps |= meets<kRegion>(fb, x0 + r.x, y0 + r.y) << q;
         }
-        float* dst = reinterpret_cast<float*>(&s_list[n_list + slot]);
-        const float* gp = geom + (bc + chunk) * kRows * kLane + tid;
-#pragma unroll
-        for (int k = 0; k < kGeomRows; ++k) copy_async4(dst + k, gp + k * kLane);
-        dst[9] = __int_as_float(chunk);
-        dst[10] = __int_as_float(tid);
-        dst[11] = __int_as_float(warps);
+        const float* gp = geom + f0 * kRows + tid;
+        s_list[n_list + slot] = Staged{
+            make_float4(gp[0], gp[kLane], gp[2 * kLane], gp[3 * kLane]),
+            make_float4(gp[4 * kLane], gp[5 * kLane], gp[6 * kLane], gp[7 * kLane]),
+            make_float4(gp[8 * kLane], __int_as_float(chunk), __int_as_float(tid),
+                        __int_as_float(warps))};
       }
+      __syncthreads();
       n_list += total;
     }
   }
-  copies_wait_all();
-  __syncthreads();
   scan_staged(s_list, n_list, x, y, w, warp);
 }
 

@@ -145,7 +145,7 @@ def sass_counts(text: str) -> Dict[str, dict]:
             return
         ops = [_mnemonic(op) for _, op, _ in instrs]
         best = None
-        for i, (addr, op, rest) in enumerate(instrs):
+        for addr, op, rest in instrs:
             target = _SASS_TARGET.search(rest) if op.startswith("BRA") else None
             if target is None:
                 continue

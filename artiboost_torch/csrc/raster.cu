@@ -39,9 +39,9 @@
 // B1 and B2: one block of 128 threads per (16 x 16 pixel tile, image), one
 // warp per 8 x 8 region of the tile, each thread holding 2 adjacent pixels
 // of one row (PERF.md holds the 8 x 32 and 8 x 8 tiles, measured slower
-// on the card). The inputs need far less work than a scan of every chunk in the
-// tile's y-range: a face can only hit pixels inside its own box, and a mesh
-// face's box is a few hundred pixels. So the block culls before it
+// on the card). The inputs need far less work than a scan of every chunk in
+// the tile's y-range: a face can only hit pixels inside its own box, and a
+// mesh face's box is a few hundred pixels. So the block culls before it
 // evaluates:
 //   1. the chunks of its row of tiles' range (`tiles`, the y-sorted rule of
 //      the 1-D table at the tile's rows) whose box (`chunk_box`) misses the
@@ -61,10 +61,10 @@
 // The loads of steps 1-2 wait on global memory twice a chunk (its lanes'
 // boxes, then the survivors' rows). Staging them by cp.async instead, the
 // boxes three chunks ahead and the rows straight into the list, ran B2 3 %
-// faster and B1 3-5 % slower (NVIDIA H100 80GB HBM3, 700.00 W), so the loads
-// stay plain (PERF.md, PR 4). The loop does not wait on shared memory either: per face a warp
-// issues 3 LDS.128 against 9 FMUL and 16 FADD for its 2 pixels (the SASS
-// counts of chip_smoke.py).
+// faster and B1 3-5 % slower (NVIDIA H100 80GB HBM3, 700.00 W), so the
+// loads stay plain (PERF.md, PR 4). Nor does the scan wait on shared
+// memory: per face a warp issues 3 LDS.128 against 9 FMUL and 16 FADD for
+// its 2 pixels (the SASS counts of chip_smoke.py).
 // The products y*b are shared by a thread's pixels: the same operands, the
 // same rounding. Tensor cores do not fit this work: a plane value is
 // ((x*a)_r + (y*b)_r)_r + c rounded after each operation, and wgmma (TF32
@@ -75,12 +75,14 @@
 // as contiguous 8-byte pairs along each row of the region: written pixel by
 // pixel, every store left a partial sector, and the stores ran far below
 // the memory's rate.
-// What bounds it on this card: the bytes, the tables and planes read once
-// and 16 B written per pixel, at 3.35 TB/s; the pass-1 operations (pixel x
-// face-box pairs x ~25) are a few microseconds at 67 TFLOP/s FP32. What
-// holds it back is the scan: a warp evaluates every face whose box meets
-// its region, about twice the faces whose box holds a given pixel
-// (chip_smoke.py prints both counts).
+// What bounds it on this card: the bytes, the valid faces' rows and the
+// range table read once and 16 B written per pixel, at the data sheet's
+// 3.35 TB/s; the pass-1 operations (pixel x face-box pairs x ~25) are a few
+// microseconds at its 67 TFLOP/s FP32. With every face invalid a kernel
+// takes about the time of zeroing its outputs; what holds it back is the
+// work of the tiles that hold faces: staging, and a scan in which a warp
+// evaluates every face whose box meets its region, about twice the faces
+// whose box holds a given pixel (chip_smoke.py prints both counts).
 //
 // B3: one block per (y-tile, band, image); a tile of tile_rows x xbin_w
 // pixels may exceed a block, so each of up to 256 threads keeps the winners

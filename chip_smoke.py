@@ -187,7 +187,7 @@ def sass_lines(path) -> list:
     def mix(n):
         lds = sum(v for k, v in n.items() if k.startswith("LDS"))
         return (f"LDS {lds} ({n['LDS.128']} of 128 bits), FADD {n['FADD']}, FMUL {n['FMUL']}, "
-                f"FFMA {n['FFMA']}, LDGSTS {n['LDGSTS']}, BAR {n['BAR']}")
+                f"FFMA {n['FFMA']}, BAR {n['BAR']}")
 
     lines = []
     for fn, c in sass_counts(res.stdout).items():

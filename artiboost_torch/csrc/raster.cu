@@ -8,8 +8,8 @@
 //   * raster_rgb_kernel - `_raster_kernel` :222, uv_mode=False, Gouraud
 //     `color_body` :201-219 and the `* (1/255)` :257-260 (kernel B2);
 //   * raster_rgb_binned_kernel - `_raster_kernel_binned` :272 with
-//     `_rasterize_binned` :469, the Gouraud pass over tiles of tile_rows x
-//     xbin_w pixels, each scanning its own x-band's face chunks (B3).
+//     `_rasterize_binned` :469, B2's function over each x-band's own face
+//     copies, each pixel taking the faces of its band (B3).
 //
 // Contract (bit-exact with the plain PyTorch twins `rasterize_batch_uv_torch`,
 // `rasterize_batch_rgb_torch` and `rasterize_batch_rgb_binned_torch` in
@@ -19,9 +19,12 @@
 //     col = the attribute planes in edge-major order (ea.c0..c(A-1),
 //     eb.c0.., ec.c0..) with A = 4 (u, v, shade, page) or A = 3 (r, g, b);
 //     invalid faces carry ec0' = -1e30 so they never pass the inside test;
+//     B3's planes hold one such set per x-band of xbin_w columns, the band's
+//     copies of the faces whose box meets it, y-sorted per band;
 //   * pass 1: a pixel is inside face f when min(lam0, lam1, lam2) >= -1e-6
 //     and w = 1/z > 0; the depth key is w's bits with the low 7 mantissa
-//     bits replaced by the lane id. The largest key wins; ties across
+//     bits replaced by the lane id (B3: the lane in the band's chunks). The
+//     largest key wins; ties across
 //     chunks keep the EARLIER chunk (strict >), which a sequential scan in
 //     sorted order with strict > reproduces exactly (keys inside a chunk
 //     are distinct because the lane ids differ);
@@ -36,19 +39,21 @@
 //   * every a*b+c is rounded twice (__fmul_rn/__fadd_rn): nvcc would
 //     otherwise contract it into an FMA and change the bits.
 //
-// B1 and B2: one block of 128 threads per (16 x 16 pixel tile, image), one
-// warp per 8 x 8 region of the tile, each thread holding 2 adjacent pixels
-// of one row (PERF.md holds the 8 x 32 and 8 x 8 tiles, measured slower
-// on the card). The inputs need far less work than a scan of every chunk in
-// the tile's y-range: a face can only hit pixels inside its own box, and a
-// mesh face's box is a few hundred pixels. So the block culls before it
+// One block of 128 threads per 16 x 16 pixel window of an image (B3: of a
+// band of an image; a band's windows start at its left edge, and pixels
+// outside its columns or the image are scanned but not written), one warp
+// per 8 x 8 region of the window, each thread holding 2 adjacent pixels of
+// one row (PERF.md holds the 8 x 32 and 8 x 8 tiles, measured slower on
+// the card). The inputs need far less work than a scan of every chunk in
+// the window's y-range: a face can only hit pixels inside its own box, and
+// a mesh face's box is a few hundred pixels. So the block culls before it
 // evaluates:
-//   1. the chunks of its row of tiles' range (`tiles`, the y-sorted rule of
-//      the 1-D table at the tile's rows) whose box (`chunk_box`) misses the
-//      tile are skipped;
+//   1. the chunks of its row of windows' range (`tiles`, the y-sorted rule
+//      of the 1-D table at the window's rows, on the band's chunks for B3)
+//      whose box (`chunk_box`) misses the window are skipped;
 //   2. of each other chunk, thread t tests lane t's box (`face_box`: its
 //      vertices solved from the planes in float64, widened by 2 px) against
-//      the tile; the survivors are compacted in (chunk, lane) order, by
+//      the window; the survivors are compacted in (chunk, lane) order, by
 //      ballot and a prefix over the four 32-lane groups, into a shared list
 //      of up to 128 faces: 9 geometry rows padded to 12 floats (three
 //      16-byte loads), the chunk, the original lane and the mask of the
@@ -58,6 +63,10 @@
 //      the winner, its chunk and its lane are those of the full scan (a
 //      face whose box misses a pixel cannot hit it, so it never changes that
 //      pixel's key). A full list is scanned and refilled.
+// B3's windows cover only pixels of their own band, so the faces whose box
+// meets one are the same as in the 1-D layout, in the band's order: the
+// tile_rows x xbin_w tiles of the TPU kernel fix only the twin's range
+// table, and any tile shape runs.
 // The loads of steps 1-2 wait on global memory twice a chunk (its lanes'
 // boxes, then the survivors' rows). Staging them by cp.async instead, the
 // boxes three chunks ahead and the rows straight into the list, ran B2 3 %
@@ -70,26 +79,19 @@
 // ((x*a)_r + (y*b)_r)_r + c rounded after each operation, and wgmma (TF32
 // inputs, fused accumulation) cannot give those bits.
 // Pass 2: each thread writes its two pixels of a planar output (B1's four,
-// B2's depth) as one 8-byte store, so a warp fills whole sectors row by row.
-// B2's interleaved r, g, b are staged per warp in shared memory and written
-// as contiguous 8-byte pairs along each row of the region: written pixel by
-// pixel, every store left a partial sector, and the stores ran far below
-// the memory's rate.
+// B2's and B3's depth) as one 8-byte store, so a warp fills whole sectors
+// row by row. The interleaved r, g, b are staged per warp in shared memory
+// and written as contiguous 8-byte pairs along each row of the region:
+// written pixel by pixel, every store left a partial sector, and the stores
+// ran far below the memory's rate.
 // What bounds it on this card: the bytes, the valid faces' rows and the
 // range table read once and 16 B written per pixel, at the data sheet's
 // 3.35 TB/s; the pass-1 operations (pixel x face-box pairs x ~25) are a few
 // microseconds at its 67 TFLOP/s FP32. With every face invalid a kernel
 // takes about the time of zeroing its outputs; what holds it back is the
-// work of the tiles that hold faces: staging, and a scan in which a warp
+// work of the windows that hold faces: staging, and a scan in which a warp
 // evaluates every face whose box meets its region, about twice the faces
 // whose box holds a given pixel (chip_smoke.py prints both counts).
-//
-// B3: one block per (y-tile, band, image); a tile of tile_rows x xbin_w
-// pixels may exceed a block, so each of up to 256 threads keeps the winners
-// of P <= 8 pixels in registers through one scan of the band's chunks in the
-// tile's range, each staged once per tile in shared memory. The binned
-// layout pays when faces are small against the frame: a tile scans only the
-// chunks of faces whose bbox meets its band.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,18 +103,16 @@ constexpr int kRows = 16;       // plane rows per chunk
 constexpr int kGeomRows = 9;    // geometry rows actually read in pass 1
 constexpr int kLaneMask = 0x7F; // low 7 mantissa bits carry the lane id
 constexpr int kGroups = kLane / 32;   // 32-lane groups of a chunk, one ballot each
-constexpr int kTile = 16;             // B1/B2: a block's pixels, kTile x kTile
-constexpr int kRegion = 8;            // B1/B2: a warp's pixels, 8 x 8 of its block's tile
-constexpr int kPix = 2;               // B1/B2: pixels a thread holds, adjacent in a row
+constexpr int kTile = 16;             // a block's pixels, kTile x kTile
+constexpr int kRegion = 8;            // a warp's pixels, 8 x 8 of its block's window
+constexpr int kPix = 2;               // pixels a thread holds, adjacent in a row
 constexpr int kTileThreads = kTile * kTile / kPix;  // 128, one per lane of a chunk
 constexpr int kTileWarps = kTileThreads / 32;       // 4, one per region
-constexpr int kListCap = 128;         // B1/B2: faces staged per scan of the list
-constexpr int kBinnedThreads = 256;   // B3: most threads per block
-constexpr int kMaxPixPerThread = 8;   // B3: tile pixels per thread (2048 per tile)
+constexpr int kListCap = 128;         // faces staged per scan of the list
 constexpr float kInv255 = 0x1.010102p-8f;  // float32(1/255), as the TPU kernel multiplies
 static_assert(kTileThreads == kLane && kTileWarps == kGroups &&
                   (kTile / kRegion) * (kTile / kRegion) == kTileWarps,
-              "B1/B2: a thread per lane, a warp per 32-lane group and per 8 x 8 region");
+              "a thread per lane, a warp per 32-lane group and per 8 x 8 region");
 
 __device__ __forceinline__ float plane(float x, float y, float a, float b, float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), c);
@@ -127,7 +127,7 @@ struct Winner {
   int chunk;  // sorted chunk of the winning face
 };
 
-// B1/B2's test of one face at one pixel: inside and in front, on strict >.
+// The test of one face at one pixel: inside and in front, on strict >.
 __device__ __forceinline__ void visit(Winner& w, float lam0, float lam1, float wz, int lane,
                                       int chunk) {
   const float lam2 = __fsub_rn(__fsub_rn(1.0f, lam0), lam1);
@@ -140,49 +140,7 @@ __device__ __forceinline__ void visit(Winner& w, float lam0, float lam1, float w
   }
 }
 
-// B3's pass 1 for the P pixels (x[j], y[j]) of this thread over the chunks
-// [c_start, c_end) of one band. Every thread of the block must call it: it
-// stages each chunk in s_geom between two barriers. Each pixel's keys are
-// visited in chunk and lane order, whatever P. It keeps its own hit test:
-// a version sharing B1/B2's helpers ran slower on the card.
-template <int P>
-__device__ __forceinline__ void nearest_face(float (*s_geom)[kLane], const float* geom_b,
-                                             int c_start, int c_end, const float (&x)[P],
-                                             const float (&y)[P], Winner (&w)[P]) {
-  const int n_threads = (int)blockDim.x;
-#pragma unroll
-  for (int j = 0; j < P; ++j) w[j] = Winner{0, 0};
-  for (int c = c_start; c < c_end; ++c) {
-    const float* g = geom_b + (size_t)c * kRows * kLane;
-    for (int i = threadIdx.x; i < kGeomRows * kLane; i += n_threads) {
-      s_geom[i / kLane][i % kLane] = g[i];
-    }
-    __syncthreads();
-    for (int l = 0; l < kLane; ++l) {
-      const float ea0 = s_geom[0][l], ea1 = s_geom[1][l], eb0 = s_geom[2][l];
-      const float eb1 = s_geom[3][l], ec0 = s_geom[4][l], ec1 = s_geom[5][l];
-      const float wa = s_geom[6][l], wb = s_geom[7][l], wc = s_geom[8][l];
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const float lam0 = plane(x[j], y[j], ea0, eb0, ec0);
-        const float lam1 = plane(x[j], y[j], ea1, eb1, ec1);
-        const float lam2 = __fsub_rn(__fsub_rn(1.0f, lam0), lam1);
-        const float wz = plane(x[j], y[j], wa, wb, wc);
-        const int wbits = __float_as_int(wz);
-        const bool hit = (lam0 >= -1e-6f) && (lam1 >= -1e-6f) && (lam2 >= -1e-6f) &&
-                         (wbits > 0);
-        const int key = (wbits & ~kLaneMask) | l;
-        if (hit && key > w[j].key) {
-          w[j].key = key;
-          w[j].chunk = c;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// A face staged for B1/B2: (ea0 ea1 eb0 eb1) (ec0' ec1 wa wb) (wc chunk lane
+// A face staged for the scan: (ea0 ea1 eb0 eb1) (ec0' ec1 wa wb) (wc chunk lane
 // warps); the chunk, the lane and the mask of the warps whose region the
 // face's box meets as int bits.
 struct __align__(16) Staged {
@@ -219,14 +177,16 @@ __device__ __forceinline__ void scan_staged(const Staged* list, int n, const flo
   }
 }
 
-// B1/B2's pass 1 of block (tile x, row of tiles y, image z) for the kPix
-// pixels (x[j], y) of this thread (see the note at the head of the file).
-// Every thread of the block must call it. Thread t owns lane t of every
-// chunk.
+// Pass 1 of the window at (x0, y0), in row of windows blockIdx.y, over the
+// planes and tables of image `img` (B3: of one band of an image), for the
+// kPix pixels (x[j], y) of this thread (see the note at the head of the
+// file). Every thread of the block must call it. Thread t owns lane t of
+// every chunk.
 __device__ __forceinline__ void nearest_face_tile(const int* __restrict__ tiles,
                                                   const int4* __restrict__ chunk_box,
                                                   const int4* __restrict__ face_box,
                                                   const float* __restrict__ geom, int n_chunks,
+                                                  int img, int x0, int y0,
                                                   const float (&x)[kPix], float y,
                                                   Winner (&w)[kPix]) {
   __shared__ Staged s_list[kListCap];
@@ -234,15 +194,14 @@ __device__ __forceinline__ void nearest_face_tile(const int* __restrict__ tiles,
   __shared__ int s_count[kGroups];
   const int tid = threadIdx.x, warp = tid / 32;
   const unsigned below = (1u << (tid % 32)) - 1u;
-  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
-  const size_t bc = (size_t)blockIdx.z * n_chunks;
+  const size_t bc = (size_t)img * n_chunks;
 #pragma unroll
   for (int j = 0; j < kPix; ++j) w[j] = Winner{0, 0};
-  const int* range = tiles + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * 2;
+  const int* range = tiles + ((size_t)img * gridDim.y + blockIdx.y) * 2;
   const int c_begin = range[0], c_end = range[1];
   int n_list = 0;
   for (int base = c_begin; base < c_end; base += kTileThreads) {
-    // the chunks of [base, base + 128) whose box meets the tile, in order
+    // the chunks of [base, base + 128) whose box meets the window, in order
     const int c = base + tid;
     const bool chunk_in = c < c_end && meets<kTile>(chunk_box[bc + c], x0, y0);
     const unsigned cm = __ballot_sync(0xffffffffu, chunk_in);
@@ -257,7 +216,7 @@ __device__ __forceinline__ void nearest_face_tile(const int* __restrict__ tiles,
     if (chunk_in) s_chunks[before + __popc(cm & below)] = c;
     __syncthreads();
     for (int i = 0; i < n_in; ++i) {
-      // that chunk's faces whose box meets the tile
+      // that chunk's faces whose box meets the window
       const int chunk = s_chunks[i];
       const size_t f0 = (bc + chunk) * kLane;
       const bool keep = meets<kTile>(face_box[f0 + tid], x0, y0);
@@ -302,10 +261,10 @@ __device__ __forceinline__ float depth_of(const Winner& w) {
   return w.key > 0 ? __fdiv_rn(1.0f, fmaxf(w_rec, 1e-30f)) : 0.0f;
 }
 
-// This warp's region: its first column and row in the image.
-__device__ __forceinline__ int2 warp_region() {
+// This warp's region of the window at `origin`: its first column and row.
+__device__ __forceinline__ int2 warp_region(int2 origin) {
   const int2 r = region_of(threadIdx.x / 32);
-  return make_int2(blockIdx.x * kTile + r.x, blockIdx.y * kTile + r.y);
+  return make_int2(origin.x + r.x, origin.y + r.y);
 }
 
 // This thread's kPix pixels of its warp's region (origin r): lane l holds
@@ -336,19 +295,21 @@ __device__ __forceinline__ void store_row(float* __restrict__ dst, const float (
 }
 
 // The interleaved r, g, b (v) of this thread's kPix pixels at (px0, py),
-// in the rgb plane of the image. Written pixel by
+// in the rgb plane of the image, of which the columns below x_end are
+// written. Written pixel by
 // pixel every store left a partial sector, so where the warp's whole region
-// lies in the image and is aligned the warp stages its values in shared
+// is written and aligned the warp stages its values in shared
 // memory (3 kPix words a lane, in lane order, which is row-major in the
 // region) and writes each row of the region as contiguous 8-byte pairs.
 __device__ __forceinline__ void store_rgb(float* __restrict__ rgb_b, const float (&v)[3 * kPix],
-                                          int2 r, int px0, int py, int height, int width) {
+                                          int2 r, int px0, int py, int height, int width,
+                                          int x_end) {
   constexpr int kPairs = 3 * kPix / 2;             // a lane's 8-byte pairs
   constexpr int kRowPairs = kPairs * kRegion / kPix;  // pairs in a row of the region
   __shared__ float2 s_rgb[kTileThreads * kPairs];
   float2* s = s_rgb + (threadIdx.x & ~31) * kPairs;  // this warp's
   const int lane = threadIdx.x % 32;
-  const int n = py < height ? min(kPix, width - px0) : 0;
+  const int n = py < height ? min(kPix, x_end - px0) : 0;
   float* dst = rgb_b + 3 * ((size_t)py * width + px0);
   if (__all_sync(0xffffffffu, n == kPix && reinterpret_cast<uintptr_t>(dst) % 8 == 0)) {
 #pragma unroll
@@ -401,11 +362,13 @@ __global__ void __launch_bounds__(kTileThreads)
                      int* __restrict__ win,                // (B, H*W) sorted id
                      float* __restrict__ depth_out,        // (B, H*W)
                      int n_chunks, int height, int width) {
-  const int2 r = warp_region();
+  const int2 origin = make_int2(blockIdx.x * kTile, blockIdx.y * kTile);
+  const int2 r = warp_region(origin);
   float xs[kPix], y;
   const int i0 = region_pixels(r, xs, y);
   Winner ws[kPix];
-  nearest_face_tile(tiles, chunk_box, face_box, geom, n_chunks, xs, y, ws);
+  nearest_face_tile(tiles, chunk_box, face_box, geom, n_chunks, blockIdx.z, origin.x, origin.y,
+                    xs, y, ws);
   const int py = r.y + i0 / kRegion, px0 = r.x + i0 % kRegion;
   if (py >= height) return;
   const float* col_b = col + (size_t)blockIdx.z * n_chunks * kRows * kLane;
@@ -445,25 +408,35 @@ __device__ __forceinline__ void rgb_of(const float* col_b, const Winner& w, floa
   rgb[2] = __fmul_rn(b8, kInv255);
 }
 
-// B3's Gouraud pass 2 of one pixel, kept apart from B2's: the winner's r, g, b
-// planes (col_b: the band's packed planes), 8-bit quantised, times
-// float32(1/255), written to rgb[3 o ..] and depth_out[o].
-__device__ __forceinline__ void write_rgb(const float* col_b, const Winner& w, float x, float y,
-                                          float* rgb, float* depth_out, size_t o) {
-  const float depth = depth_of(w);
-  float r8 = 0.0f;
-  float g8 = 0.0f;
-  float b8 = 0.0f;
-  if (w.key > 0) {
-    const float* fc = col_b + (size_t)w.chunk * kRows * kLane + (w.key & kLaneMask);
-    r8 = quant8(plane(x, y, fc[0 * kLane], fc[3 * kLane], fc[6 * kLane]), depth);
-    g8 = quant8(plane(x, y, fc[1 * kLane], fc[4 * kLane], fc[7 * kLane]), depth);
-    b8 = quant8(plane(x, y, fc[2 * kLane], fc[5 * kLane], fc[8 * kLane]), depth);
+// B2's and B3's pass 1 and pass 2 of the window at `origin` over the planes
+// and tables of image `img` (B3: a band of one), writing the pixels of
+// columns below x_end and rows below height of the output image's rgb_b and
+// depth_b planes.
+__device__ __forceinline__ void gouraud_window(const int* __restrict__ tiles,
+                                               const int4* __restrict__ chunk_box,
+                                               const int4* __restrict__ face_box,
+                                               const float* __restrict__ geom,
+                                               const float* __restrict__ col, int n_chunks,
+                                               int img, int2 origin, int x_end,
+                                               float* __restrict__ rgb_b,
+                                               float* __restrict__ depth_b, int height,
+                                               int width) {
+  const int2 r = warp_region(origin);
+  float xs[kPix], y;
+  const int i0 = region_pixels(r, xs, y);
+  Winner ws[kPix];
+  nearest_face_tile(tiles, chunk_box, face_box, geom, n_chunks, img, origin.x, origin.y, xs, y,
+                    ws);
+  const float* col_b = col + (size_t)img * n_chunks * kRows * kLane;
+  float o_rgb[3 * kPix], o_depth[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    o_depth[j] = depth_of(ws[j]);
+    rgb_of(col_b, ws[j], xs[j], y, o_depth[j], &o_rgb[3 * j]);
   }
-  rgb[3 * o] = __fmul_rn(r8, kInv255);
-  rgb[3 * o + 1] = __fmul_rn(g8, kInv255);
-  rgb[3 * o + 2] = __fmul_rn(b8, kInv255);
-  depth_out[o] = depth;
+  const int py = r.y + i0 / kRegion, px0 = r.x + i0 % kRegion;
+  store_rgb(rgb_b, o_rgb, r, px0, py, height, width, x_end);
+  if (py < height) store_row(depth_b + (size_t)py * width + px0, o_depth, min(kPix, x_end - px0));
 }
 
 __global__ void __launch_bounds__(kTileThreads)
@@ -475,67 +448,33 @@ __global__ void __launch_bounds__(kTileThreads)
                       float* __restrict__ rgb,              // (B, H*W, 3)
                       float* __restrict__ depth_out,        // (B, H*W)
                       int n_chunks, int height, int width) {
-  const int2 r = warp_region();
-  float xs[kPix], y;
-  const int i0 = region_pixels(r, xs, y);
-  Winner ws[kPix];
-  nearest_face_tile(tiles, chunk_box, face_box, geom, n_chunks, xs, y, ws);
-  const float* col_b = col + (size_t)blockIdx.z * n_chunks * kRows * kLane;
-  float o_rgb[3 * kPix], o_depth[kPix];
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    o_depth[j] = depth_of(ws[j]);
-    rgb_of(col_b, ws[j], xs[j], y, o_depth[j], &o_rgb[3 * j]);
-  }
-  const int py = r.y + i0 / kRegion, px0 = r.x + i0 % kRegion;
-  const size_t img = (size_t)blockIdx.z * height * width;
-  store_rgb(rgb + 3 * img, o_rgb, r, px0, py, height, width);
-  if (py < height) {
-    store_row(depth_out + img + (size_t)py * width + px0, o_depth, min(kPix, width - px0));
-  }
+  const size_t o = (size_t)blockIdx.z * height * width;
+  gouraud_window(tiles, chunk_box, face_box, geom, col, n_chunks, blockIdx.z,
+                 make_int2(blockIdx.x * kTile, blockIdx.y * kTile), width, rgb + 3 * o,
+                 depth_out + o, height, width);
 }
 
-// B3: block (ty, tx, b) rasterizes the tile_rows x xbin_w pixels of y-tile
-// ty in x-band tx of image b. Pixel p of the tile sits at column
-// tx*xbin_w + p % xbin_w and row ty*tile_rows + p / xbin_w (:280-282);
-// thread i holds the pixels p = i + j*blockDim.x, j < P. Pixels past the
-// tile or outside the image take part in every barrier and write nothing.
-template <int P>
-__global__ void raster_rgb_binned_kernel(const int* __restrict__ ranges,   // (B, NB, YT, 2)
-                                         const float* __restrict__ geom,   // (B, NB, NC, 16, 128)
-                                         const float* __restrict__ col,    // (B, NB, NC, 16, 128)
-                                         float* __restrict__ rgb,          // (B, H*W, 3)
-                                         float* __restrict__ depth_out,    // (B, H*W)
-                                         int n_bands, int n_ytiles, int n_chunks, int height,
-                                         int width, int xbin_w, int tile_rows) {
-  __shared__ float s_geom[kGeomRows][kLane];
-  const int ty = blockIdx.x;
-  const int tx = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tile_px = xbin_w * tile_rows;
-  float xs[P];
-  float ys[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const int p = threadIdx.x + j * blockDim.x;
-    xs[j] = (float)(tx * xbin_w + p % xbin_w) + 0.5f;
-    ys[j] = (float)(ty * tile_rows + p / xbin_w) + 0.5f;
-  }
-  const size_t band = (size_t)b * n_bands + tx;
-  const size_t band_planes = (size_t)n_chunks * kRows * kLane;
-  const int* r = ranges + (band * n_ytiles + ty) * 2;
-  Winner ws[P];
-  nearest_face<P>(s_geom, geom + band * band_planes, r[0], r[1], xs, ys, ws);
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const int p = threadIdx.x + j * blockDim.x;
-    const int px = tx * xbin_w + p % xbin_w;
-    const int py = ty * tile_rows + p / xbin_w;
-    if (p < tile_px && px < width && py < height) {
-      write_rgb(col + band * band_planes, ws[j], xs[j], ys[j], rgb, depth_out,
-                ((size_t)b * height + py) * width + px);
-    }
-  }
+// B3: block (window x, row of windows, image b) takes the 16 x 16 window
+// blockIdx.x % windows of band blockIdx.x / windows, a band's ceil(xbin_w /
+// 16) windows starting at its left edge, over that band's planes and tables.
+__global__ void __launch_bounds__(kTileThreads)
+    raster_rgb_binned_kernel(const int* __restrict__ tiles,        // (B, NB, TY, 2)
+                             const int4* __restrict__ chunk_box,   // (B, NB, NC)
+                             const int4* __restrict__ face_box,    // (B, NB, NC, 128)
+                             const float* __restrict__ geom,       // (B, NB, NC, 16, 128)
+                             const float* __restrict__ col,        // (B, NB, NC, 16, 128)
+                             float* __restrict__ rgb,              // (B, H*W, 3)
+                             float* __restrict__ depth_out,        // (B, H*W)
+                             int n_bands, int n_chunks, int height, int width, int xbin_w) {
+  const int windows = (xbin_w + kTile - 1) / kTile;
+  const int band = blockIdx.x / windows;
+  const int2 origin = make_int2(band * xbin_w + (blockIdx.x % windows) * kTile,
+                                blockIdx.y * kTile);
+  const int x_end = min((band + 1) * xbin_w, width);
+  if (origin.x >= x_end) return;  // the whole block, past the image's last column
+  const size_t o = (size_t)blockIdx.z * height * width;
+  gouraud_window(tiles, chunk_box, face_box, geom, col, n_chunks, blockIdx.z * n_bands + band,
+                 origin, x_end, rgb + 3 * o, depth_out + o, height, width);
 }
 
 inline dim3 tile_grid(int batch, int height, int width) {
@@ -568,32 +507,19 @@ extern "C" int raster_rgb_launch(const int* tiles, const int* chunk_box, const i
   return (int)cudaGetLastError();
 }
 
-extern "C" int raster_rgb_binned_launch(const int* ranges, const float* geom, const float* col,
+extern "C" int raster_rgb_binned_launch(const int* tiles, const int* chunk_box,
+                                        const int* face_box, const float* geom, const float* col,
                                         float* rgb, float* depth, int batch, int n_bands,
-                                        int n_ytiles, int n_chunks, int height, int width,
-                                        int xbin_w, int tile_rows, cudaStream_t stream) {
-  if (batch <= 0 || n_bands <= 0 || n_ytiles <= 0) return (int)cudaSuccess;
-  const int tile_px = xbin_w * tile_rows;
-  if (xbin_w <= 0 || tile_rows <= 0 || tile_px > kBinnedThreads * kMaxPixPerThread) {
+                                        int n_chunks, int height, int width, int xbin_w,
+                                        cudaStream_t stream) {
+  if (batch <= 0 || height <= 0 || width <= 0) return (int)cudaSuccess;
+  if (xbin_w <= 0 || n_bands != (width + xbin_w - 1) / xbin_w || batch > 65535 ||
+      (height + kTile - 1) / kTile > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  // a tile smaller than a block takes whole warps only
-  const int threads = tile_px < kBinnedThreads ? (tile_px + 31) / 32 * 32 : kBinnedThreads;
-  const int per_thread = (tile_px + threads - 1) / threads;
-  dim3 grid(n_ytiles, n_bands, batch);
-#define RASTER_BINNED_LAUNCH(P)                                                        \
-  raster_rgb_binned_kernel<P><<<grid, threads, 0, stream>>>(                           \
-      ranges, geom, col, rgb, depth, n_bands, n_ytiles, n_chunks, height, width, xbin_w, \
-      tile_rows)
-  if (per_thread <= 1) {
-    RASTER_BINNED_LAUNCH(1);
-  } else if (per_thread <= 2) {
-    RASTER_BINNED_LAUNCH(2);
-  } else if (per_thread <= 4) {
-    RASTER_BINNED_LAUNCH(4);
-  } else {
-    RASTER_BINNED_LAUNCH(8);
-  }
-#undef RASTER_BINNED_LAUNCH
+  const dim3 grid(n_bands * ((xbin_w + kTile - 1) / kTile), (height + kTile - 1) / kTile, batch);
+  raster_rgb_binned_kernel<<<grid, kTileThreads, 0, stream>>>(
+      tiles, reinterpret_cast<const int4*>(chunk_box), reinterpret_cast<const int4*>(face_box),
+      geom, col, rgb, depth, n_bands, n_chunks, height, width, xbin_w);
   return (int)cudaGetLastError();
 }

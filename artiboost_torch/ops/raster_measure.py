@@ -1,8 +1,10 @@
 """What the raster kernels' measurements count (``chip_smoke.py`` prints
-them; ``tests/test_torch_raster_cull.py`` holds them on the CPU): the work
-the inputs need, for a kernel's bound; the faces the uv and Gouraud kernels'
-tables leave each warp; the 1-D scan's chunks; and the instruction mix of
-the compiled kernels' loops, read from ``cuobjdump -sass``. Nothing on the
+them; ``tests/test_torch_raster_cull.py`` and
+``tests/test_torch_raster_binned_cull.py`` hold them on the CPU): the work
+the inputs need, for a kernel's bound; the faces the kernels' tables leave
+each warp; the chunks of a scan of every chunk in a tile's range (the JAX
+kernel's and the first CUDA designs'); and the instruction mix of the
+compiled kernels' loops, read from ``cuobjdump -sass``. Nothing on the
 raster's path imports this module."""
 from __future__ import annotations
 
@@ -58,30 +60,49 @@ def raster_work(inp: RasterInputs, n_attr: int) -> Tuple[int, int, int]:
     return read, BYTES_WRITTEN_PER_PIXEL * lead[0] * H * W, pairs
 
 
-def scanned_faces(inp: RasterInputs) -> torch.Tensor:
-    """(B, RY, RX, NC, 128) bool: the faces the uv and Gouraud kernels
-    evaluate in each RASTER_REGION x RASTER_REGION region of the image (one
-    warp's pixels): those of the chunks in its tile row's range whose chunk
-    box meets its tile and whose own box meets the region. ``inp`` carries
-    the kernels' tables (``kernel_tables``)."""
+def region_columns(inp: RasterInputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (NB, RX) first column of each RASTER_REGION-wide warp region of a
+    row of the kernels' windows, and how many of its columns the kernel
+    writes. A band's windows start at its left edge and write only its
+    columns; the uv and Gouraud layout is one band of the image's width."""
     t, r = RASTER_TILE, RASTER_REGION
-    B, NC = inp.geom.shape[:2]
+    xbin_w = inp.tile[0] if inp.tile else inp.width
+    lo = torch.arange(-(-inp.width // xbin_w), device=inp.geom.device) * xbin_w
+    x0 = lo[:, None] + torch.arange(-(-xbin_w // t) * (t // r), device=lo.device) * r
+    hi = torch.clamp(lo + xbin_w, max=inp.width)
+    return x0, (hi[:, None] - x0).clamp(0, r)
+
+
+def scanned_faces(inp: RasterInputs) -> torch.Tensor:
+    """(N, RY, RX, NC, 128) bool: the faces the kernels evaluate in each
+    RASTER_REGION x RASTER_REGION region of each image (B3: of each band of
+    an image, N = B NB; regions as ``region_columns``), one warp's pixels:
+    those of the chunks in its window row's range whose chunk box meets its
+    window and whose own box meets the region. ``inp`` carries the
+    kernels' tables (``kernel_tables``)."""
+    t, r = RASTER_TILE, RASTER_REGION
+    NC = inp.geom.shape[-3]
+    tiles = inp.tiles.reshape(-1, inp.tiles.shape[-2], 2)
+    chunk_box = inp.chunk_box.reshape(-1, NC, 1, 4)
+    face_box = inp.face_box.reshape(-1, NC, LANE, 4)
     dev = inp.geom.device
-    x0 = torch.arange(-(-inp.width // t) * (t // r), device=dev) * r  # region origins
+    x0, _ = region_columns(inp)
+    x0 = x0.repeat(tiles.shape[0] // x0.shape[0], 1)  # (N, RX): image n is band n % NB
+    window_x0 = x0 - (x0 - x0[:, :1]) % t
     y0 = torch.arange(-(-inp.height // t) * (t // r), device=dev) * r
 
-    def meets(box, xs, ys, n):  # (B, NC, m, 4) -> (B, RY, RX, NC, m)
+    def meets(box, xs, ys, n):  # (N, NC, m, 4), (N, RX), (RY,) -> (N, RY, RX, NC, m)
         box = box[:, None]
-        xs, ys = xs[:, None, None], ys[:, None, None]
-        in_x = (box[..., 0] < xs + n) & (box[..., 1] > xs)  # (B, RX, NC, m)
-        in_y = (box[..., 2] < ys + n) & (box[..., 3] > ys)  # (B, RY, NC, m)
+        xs, ys = xs[:, :, None, None], ys[:, None, None]
+        in_x = (box[..., 0] < xs + n) & (box[..., 1] > xs)  # (N, RX, NC, m)
+        in_y = (box[..., 2] < ys + n) & (box[..., 3] > ys)  # (N, RY, NC, m)
         return in_y[:, :, None] & in_x[:, None]
 
     c = torch.arange(NC, device=dev)
-    in_range = (c >= inp.tiles[..., :1]) & (c < inp.tiles[..., 1:])  # (B, TY, NC)
-    in_range = in_range[:, torch.div(y0, t, rounding_mode="floor")]  # (B, RY, NC)
-    chunk_in = meets(inp.chunk_box[:, :, None], x0 - x0 % t, y0 - y0 % t, t)
-    return in_range[:, :, None, :, None] & chunk_in & meets(inp.face_box, x0, y0, r)
+    in_range = (c >= tiles[..., :1]) & (c < tiles[..., 1:])  # (N, TY, NC)
+    in_range = in_range[:, torch.div(y0, t, rounding_mode="floor")]  # (N, RY, NC)
+    chunk_in = meets(chunk_box, window_x0, y0 - y0 % t, t)
+    return in_range[:, :, None, :, None] & chunk_in & meets(face_box, x0, y0, r)
 
 
 def scanned_chunk_pixels(inp: RasterInputs) -> float:
@@ -106,17 +127,15 @@ def scanned_chunk_pixels(inp: RasterInputs) -> float:
 
 
 def face_evaluations(inp: RasterInputs) -> float:
-    """Face evaluations of this input's pass 1: for the uv and Gouraud
-    kernels, each warp region's pixels in the image times the faces the
-    tables leave it (``scanned_faces``); for B3, 128 a chunk in range."""
-    if inp.tile:
-        return scanned_chunk_pixels(inp) * LANE
+    """Face evaluations of this input's pass 1 that reach a written pixel:
+    each warp region's pixels that its kernel writes times the faces the
+    tables leave it (``scanned_faces``)."""
     r = RASTER_REGION
-    n_faces = scanned_faces(inp).sum((-1, -2)).double()  # (B, RY, RX)
-    dev = n_faces.device
-    cols = torch.clamp(inp.width - torch.arange(n_faces.shape[2], device=dev) * r, 0, r)
-    rows = torch.clamp(inp.height - torch.arange(n_faces.shape[1], device=dev) * r, 0, r)
-    return float((n_faces * (rows[:, None] * cols[None, :]).double()).sum())
+    n_faces = scanned_faces(inp).sum((-1, -2)).double()  # (N, RY, RX)
+    _, cols = region_columns(inp)
+    cols = cols.repeat(n_faces.shape[0] // cols.shape[0], 1)  # (N, RX)
+    rows = torch.clamp(inp.height - torch.arange(n_faces.shape[1], device=cols.device) * r, 0, r)
+    return float((n_faces * (rows[None, :, None] * cols[:, None, :]).double()).sum())
 
 
 _SASS_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")

@@ -24,13 +24,15 @@ kernel's:
   * in uv mode the winner id is unsorted back to the caller's face order
     and (page, shade) unpacked (:430-448).
 
-The uv and Gouraud kernels (B1, B2) do not read that 1-D range table: they
-scan square pixel tiles of side ``RASTER_TILE`` and read three tables of
-their own (``kernel_tables``: ``tile_ranges``, ``chunk_boxes``,
-``face_boxes``), which only narrow the faces a tile evaluates to those
-whose pixel box meets it. ``prepare_raster`` builds them for planes on the
-card. Their twins read the 1-D table, as the JAX kernel does; it is built
-where a twin runs (``RasterInputs.twin_args``).
+No kernel reads the JAX kernel's range tables: the three kernels scan
+square pixel windows of side ``RASTER_TILE`` (B3's in each x-band) and
+read three tables of their own (``kernel_tables``: ``tile_ranges``,
+``chunk_boxes``, ``face_boxes``, per band for B3), which only narrow the
+faces a window evaluates to those whose pixel box meets it.
+``prepare_raster`` and ``prepare_raster_binned`` build them for planes on
+the card. The twins read the JAX kernel's tables, as it does: the 1-D one
+is built where a twin runs (``RasterInputs.twin_args``), the binned one by
+``prepare_raster_binned``.
 
 On a CPU tensor a kernel wrapper runs its plain twin; on a CUDA tensor it
 launches the kernel or raises. Every a*b+c in the twins is two separately
@@ -51,8 +53,7 @@ LANE = 128          # faces per chunk
 N_ROWS = 16         # plane rows per chunk
 _LANE_MASK = 0x7F   # low 7 mantissa bits of the depth key carry the lane id
 TILE_PX = 256       # pixels per tile of the 1-D range table (the JAX kernel's tile_px)
-MAX_BINNED_TILE_PX = 2048  # binned tile: 256 threads x kMaxPixPerThread in raster.cu
-RASTER_TILE = 16  # side of the uv and Gouraud kernels' square pixel tiles (kTile in raster.cu)
+RASTER_TILE = 16  # side of the kernels' square pixel windows (kTile in raster.cu)
 RASTER_REGION = 8  # each warp of those kernels scans for an 8 x 8 region of its tile (kRegion)
 BOX_LIMIT = 10 ** 9  # boxes are clamped to +-BOX_LIMIT; an empty one is [BOX_LIMIT, -BOX_LIMIT)
 _TWIN_ELEMS = 1 << 24  # bound on the twin's (images, pixels, 128) temporaries
@@ -63,9 +64,10 @@ class RasterInputs(NamedTuple):
     unsort. The binned raster's arrays carry a band axis after the batch
     axis, its ``ranges`` are keyed by (image, band, y-tile) and ``tile`` is
     (xbin_w, tile_rows). The uv and Gouraud layout has ``tile`` () and no
-    ``ranges``: it keeps the chunk ``extents`` that its twins' 1-D range
-    table is built from (``twin_args``), and on the card the kernels' own
-    tables (``kernel_tables``)."""
+    ``ranges``: its twins' 1-D range table is built from the chunk
+    ``extents`` (``twin_args``). Both keep the ``extents`` of every image
+    (B3: of every band of one), and on the card the kernels' own tables
+    (``kernel_tables``), with the planes' leading axes."""
 
     geom: torch.Tensor    # (B, NC, 16, 128) f32 edge + 1/z planes; binned (B, NB, NC, 16, 128)
     col: torch.Tensor     # (B, NC, 16, 128) f32 attribute/z planes; binned as geom
@@ -74,10 +76,10 @@ class RasterInputs(NamedTuple):
     width: int
     ranges: Optional[torch.Tensor] = None  # binned: (B, NB, YT, 2) int32 chunk range per tile
     tile: Tuple[int, ...] = ()
-    extents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # ``_chunk_extents``
-    tiles: Optional[torch.Tensor] = None      # (B, TY, 2) int32 chunk range per row of tiles
-    chunk_box: Optional[torch.Tensor] = None  # (B, NC, 4) int32 (x0, x1, y0, y1)
-    face_box: Optional[torch.Tensor] = None   # (B, NC, 128, 4) int32 (x0, x1, y0, y1)
+    extents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # ``_chunk_extents`` (B[*NB], NC)
+    tiles: Optional[torch.Tensor] = None      # (B, [NB,] TY, 2) int32 chunk range per window row
+    chunk_box: Optional[torch.Tensor] = None  # (B, [NB,] NC, 4) int32 (x0, x1, y0, y1)
+    face_box: Optional[torch.Tensor] = None   # (B, [NB,] NC, 128, 4) int32 (x0, x1, y0, y1)
 
     def twin_args(self) -> tuple:
         """The plain twin's arguments. The uv and Gouraud twins' 1-D range
@@ -178,8 +180,8 @@ def _chunk_extents(sf: ScreenFace, n_chunks: int) -> Tuple[torch.Tensor, torch.T
 
 
 def tile_ranges(extents: Tuple[torch.Tensor, torch.Tensor], height: int) -> torch.Tensor:
-    """(B, TY, 2) int32 [start, end) of the sorted chunks whose y-extent can
-    touch the rows [ty RASTER_TILE, (ty + 1) RASTER_TILE) of a row of tiles
+    """(N, TY, 2) int32 [start, end) of the sorted chunks whose y-extent can
+    touch the rows [ty RASTER_TILE, (ty + 1) RASTER_TILE) of a row of windows
     (the rule of ``chunk_ranges``, tile_ymax the last row's index plus 1),
     from ``_chunk_extents``."""
     ty = torch.arange(-(-height // RASTER_TILE), dtype=torch.float32, device=extents[0].device)
@@ -217,12 +219,16 @@ def chunk_boxes(face_box: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_tables(inp: RasterInputs) -> RasterInputs:
-    """``inp`` of the uv and Gouraud layout with the kernels' own tables:
-    each row of tiles' chunk range (``tile_ranges``), each face's pixel box
-    (``face_boxes``) and each chunk's (``chunk_boxes``)."""
-    fbox = face_boxes(inp.geom)
-    return inp._replace(tiles=tile_ranges(inp.extents, inp.height),
-                        chunk_box=chunk_boxes(fbox), face_box=fbox)
+    """``inp`` with the kernels' own tables: each row of windows' chunk
+    range (``tile_ranges``), each face's pixel box (``face_boxes``) and each
+    chunk's (``chunk_boxes``); in the binned layout those of every band,
+    each band's planes taken as an image."""
+    lead = tuple(inp.geom.shape[:-3])
+    fbox = face_boxes(inp.geom.reshape((-1,) + tuple(inp.geom.shape[-3:])))
+    tiles = tile_ranges(inp.extents, inp.height)
+    return inp._replace(tiles=tiles.reshape(lead + tiles.shape[1:]),
+                        chunk_box=chunk_boxes(fbox).reshape(lead + (fbox.shape[1], 4)),
+                        face_box=fbox.reshape(lead + fbox.shape[1:]))
 
 
 def prepare_raster(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
@@ -253,8 +259,10 @@ def prepare_raster_binned(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
     :469-517): every face is copied into each of the ceil(W / xbin_w)
     x-bands, valid in a band when it is valid and its bbox meets
     [k xbin_w, (k + 1) xbin_w); each band is stably y-sorted with its
-    invalid copies last and packed; the range table is keyed by (image,
-    band, y-tile) with tile_ymax exclusive at (ty + 1) tile_rows."""
+    invalid copies last and packed; the twin's range table is keyed by
+    (image, band, y-tile) with tile_ymax exclusive at (ty + 1) tile_rows.
+    For planes on the card, the kernel's own tables of every band
+    (``kernel_tables``)."""
     if vert_colors.shape[-1] != 3:
         raise ValueError("the binned raster is Gouraud only and takes (r, g, b) attrs, "
                          f"got {tuple(vert_colors.shape)}")
@@ -275,13 +283,14 @@ def prepare_raster_binned(verts_screen: torch.Tensor, vert_colors: torch.Tensor,
     sfb = ScreenFace(*(banded(a) for a in sf))._replace(valid=in_band.reshape(B * n_bands, F))
     sfb, order = _sort_faces(sfb)
     geom, col = pack_faces(sfb, n_chunks)
+    extents = _chunk_extents(sfb, n_chunks)
     ty = torch.arange(n_ytiles, dtype=torch.float32, device=dev)
-    ranges = _ranges_for_rows(_chunk_extents(sfb, n_chunks), ty * tile_rows,
-                              (ty + 1) * tile_rows)
+    ranges = _ranges_for_rows(extents, ty * tile_rows, (ty + 1) * tile_rows)
     shape = (B, n_bands, n_chunks, N_ROWS, LANE)
-    return RasterInputs(geom.reshape(shape), col.reshape(shape), order.reshape(B, n_bands, F),
-                        height, width, ranges.reshape(B, n_bands, n_ytiles, 2),
-                        (xbin_w, tile_rows))
+    inp = RasterInputs(geom.reshape(shape), col.reshape(shape), order.reshape(B, n_bands, F),
+                       height, width, ranges.reshape(B, n_bands, n_ytiles, 2),
+                       (xbin_w, tile_rows), extents)
+    return kernel_tables(inp) if geom.is_cuda else inp
 
 
 def _nearest_face_torch(ranges: torch.Tensor, geom: torch.Tensor, height: int, width: int,
@@ -434,7 +443,7 @@ class RasterLibrary:
             lib.raster_rgb_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                                               + [ctypes.c_void_p])
             lib.raster_rgb_launch.restype = ctypes.c_int
-            lib.raster_rgb_binned_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+            lib.raster_rgb_binned_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                                                      + [ctypes.c_void_p])
             lib.raster_rgb_binned_launch.restype = ctypes.c_int
             self._lib = lib
@@ -460,25 +469,23 @@ def _check_inputs(name: str, ranges, geom, col, height: int, width: int,
             or ranges.shape[2] != -(-height // tile_rows)):
         raise ValueError(f"{name}: ranges {tuple(ranges.shape)} do not tile a "
                          f"{height}x{width} image in {tile_rows}x{xbin_w} tiles")
-    if xbin_w * tile_rows > MAX_BINNED_TILE_PX:
-        raise ValueError(f"{name}: a {tile_rows}x{xbin_w} tile holds more than "
-                         f"{MAX_BINNED_TILE_PX} pixels")
 
 
 def _check_tables(name: str, inp: RasterInputs):
-    """What the uv and Gouraud kernel wrappers refuse before a launch: planes
-    and tables other than ``prepare_raster``'s on the card."""
-    B, NC = inp.geom.shape[:2]
-    want = ((inp.geom, (B, NC, N_ROWS, LANE), torch.float32),
-            (inp.col, (B, NC, N_ROWS, LANE), torch.float32),
-            (inp.tiles, (B, -(-inp.height // RASTER_TILE), 2), torch.int32),
-            (inp.chunk_box, (B, NC, 4), torch.int32),
-            (inp.face_box, (B, NC, LANE, 4), torch.int32))
+    """What every kernel wrapper refuses before a launch: planes and tables
+    other than ``prepare_raster``'s or ``prepare_raster_binned``'s on the
+    card (the binned ones with a band axis after the batch axis)."""
+    lead, NC = tuple(inp.geom.shape[:-3]), inp.geom.shape[-3]
+    want = ((inp.geom, lead + (NC, N_ROWS, LANE), torch.float32),
+            (inp.col, lead + (NC, N_ROWS, LANE), torch.float32),
+            (inp.tiles, lead + (-(-inp.height // RASTER_TILE), 2), torch.int32),
+            (inp.chunk_box, lead + (NC, 4), torch.int32),
+            (inp.face_box, lead + (NC, LANE, 4), torch.int32))
     for t, shape, dtype in want:
         if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape or t.dtype != dtype
                 or not t.is_contiguous() or t.device != inp.geom.device or t.data_ptr() % 16):
-            raise ValueError(f"{name}: geom and col (B, NC, 16, 128) float32 and the tile tables "
-                             f"int32 (B, TY, 2), (B, NC, 4) and (B, NC, {LANE}, 4) = "
+            raise ValueError(f"{name}: geom and col (B, [NB,] NC, 16, 128) float32 and the tile "
+                             f"tables int32 (.., TY, 2), (.., NC, 4) and (.., NC, {LANE}, 4) = "
                              f"{[s for _, s, _ in want]}, contiguous and 16-byte aligned "
                              "on one CUDA device (``kernel_tables``)")
 
@@ -488,9 +495,8 @@ class RasterKernel:
     ``RasterInputs``; ``launches`` counts kernel launches (and nothing
     else). ``twin`` is the plain PyTorch version, called on
     ``RasterInputs.twin_args()``, that the wrapper runs for CPU tensors.
-    The binned kernel takes ``prepare_raster_binned``'s inputs, whose tile
-    may hold at most MAX_BINNED_TILE_PX pixels; the uv and Gouraud kernels
-    take ``prepare_raster``'s, with the kernels' tables."""
+    The binned kernel takes ``prepare_raster_binned``'s inputs, the uv and
+    Gouraud kernels ``prepare_raster``'s, each with the kernels' tables."""
 
     def __init__(self, name: str, library: RasterLibrary, twin):
         self.name, self.library, self.twin = name, library, twin
@@ -515,14 +521,13 @@ class RasterKernel:
             raise ValueError(f"{self.name}: unsupported device {geom.device}")
         if binned:
             _check_inputs(self.name, inp.ranges, geom, col, inp.height, inp.width, inp.tile)
-        else:
-            _check_tables(self.name, inp)
+        _check_tables(self.name, inp)
         lib = self.build()
         B, n_pix = geom.shape[0], inp.height * inp.width
         f32 = dict(dtype=torch.float32, device=geom.device)
         stream = torch.cuda.current_stream(geom.device).cuda_stream
         ptrs = lambda *ts: tuple(t.data_ptr() for t in ts)  # noqa: E731
-        tables = () if binned else ptrs(inp.tiles, inp.chunk_box, inp.face_box)
+        tables = ptrs(inp.tiles, inp.chunk_box, inp.face_box)
         if self.name == "raster_uv":
             quv, qsp, depth = (torch.empty((B, n_pix), **f32) for _ in range(3))
             win = torch.empty((B, n_pix), dtype=torch.int32, device=geom.device)
@@ -536,10 +541,9 @@ class RasterKernel:
                 err = lib.raster_rgb_launch(*tables, *ptrs(geom, col, rgb, depth), B,
                                             geom.shape[1], inp.height, inp.width, stream)
             else:
-                err = lib.raster_rgb_binned_launch(*ptrs(inp.ranges, geom, col, rgb, depth), B,
-                                                   geom.shape[1], inp.ranges.shape[2],
-                                                   geom.shape[2], inp.height, inp.width,
-                                                   *inp.tile, stream)
+                err = lib.raster_rgb_binned_launch(*tables, *ptrs(geom, col, rgb, depth), B,
+                                                   geom.shape[1], geom.shape[2], inp.height,
+                                                   inp.width, inp.tile[0], stream)
             out = (rgb, depth)
         if err != 0:
             raise RuntimeError(f"{self.name}_launch failed: CUDA error {err}")

@@ -15,19 +15,20 @@ Phases, each fatal on failure:
      tile_rows) = (16, 8), (8, 4), (16, 5) and (32, 8); B3 on the parity
      gate's binned scene at its (32, 8); the uv kernel on one val batch of
      the main path (B = 128 at 112x112); the rgb kernel and B3 at (64, 8),
-     (64, 16) and (128, 16) on one SyntheticHO render chunk at full width
-     (B = 16 at 512x512, hand plus an object of up to 1024 faces), B3 also
-     against B2 there (depth within 1e-6; colour equal but at depth-key
-     ties, which are counted). Kernel times (CUDA events over a CUDA graph
-     of 50 launches, so the wrapper's host work is not timed), plain times
-     and bounds at those shapes. The bound is the larger of the bytes (the
-     rows the kernel reads of every valid face and the range table, once,
-     and 16 B written a pixel, at 3.35 TB/s; ``raster_measure.raster_work``)
-     and the operations (pixel x face-box pairs x 25, at 67 TFLOP/s FP32).
-     Beside it: the time of zeroing the kernel's outputs (the writes
-     alone), B1's and B2's time with every face invalid (nothing staged or
-     scanned), the 1-D scan's chunks per pixel and the face evaluations per
-     pixel that the kernel's tables leave;
+     (64, 16), (128, 16) and (128, 32) (4096 pixels a tile) on one
+     SyntheticHO render chunk at full width (B = 16 at 512x512, hand plus an
+     object of up to 1024 faces), B3 also against B2 there (depth within
+     1e-6; colour equal but at depth-key ties, which are counted). Kernel
+     times (CUDA events over a CUDA graph of 50 launches, so the wrapper's
+     host work is not timed), plain times and bounds at those shapes. The
+     bound is the larger of the bytes (the rows the kernel reads of every
+     valid face and the range table, once, and 16 B written a pixel, at
+     3.35 TB/s; ``raster_measure.raster_work``) and the operations (pixel x
+     face-box pairs x 25, at 67 TFLOP/s FP32). Beside it: the time of
+     zeroing the kernel's outputs (the writes alone), the kernel's time with
+     every face invalid (nothing staged or scanned), the chunks per pixel of
+     a scan of every chunk in a tile's range (the JAX kernel's) and the face
+     evaluations per pixel that the kernel's tables leave;
   4. the val-and-mining slice at full width (config
      ho3dv2_clasbased_artiboost.yaml: ResNet34 in bfloat16, 224x224, batch
      128, CCV 4 x 288 x 50, method_1, the hand_obj refiner with ITERS 3
@@ -67,12 +68,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # non-tensor FP32, H100 SXM data sheet
 RASTER_OPS_PER_LANE = 25        # pass-1 operations per (pixel, face)
-# (xbin_w, tile_rows). A tile of n pixels launches min(256, n rounded up to
-# a warp) threads, each holding P = ceil(n / threads) pixels: the check
-# tiles launch 128, 32, 96 and 256 threads at P = 1; the full-width tiles
-# are P = 2, 4 and 8, every instantiation of the kernel.
+# (xbin_w, tile_rows). B3 scans 16 x 16 windows of each band, whatever the
+# tile, which fixes only the twin's range table: the check tiles take bands
+# narrower than a window (8, 5) and not a multiple of it; the full-width
+# tiles are those of the JAX package's users, and one of 4096 pixels.
 BINNED_CHECK_TILES = ((16, 8), (8, 4), (16, 5), (32, 8))
-BINNED_FULL_TILES = ((64, 8), (64, 16), (128, 16))
+BINNED_FULL_TILES = ((64, 8), (64, 16), (128, 16), (128, 32))
 
 
 def fail(msg: str):
@@ -193,9 +194,8 @@ def sass_lines(path) -> list:
     for fn, c in sass_counts(res.stdout).items():
         name = fn
         for k in ("raster_uv_kernel", "raster_rgb_kernel", "raster_rgb_binned_kernel"):
-            if k in fn:  # the mangled name -> the kernel's, with B3's P
-                rest = fn.split(k, 1)[1]
-                name = k + (f"<P={rest[3:rest.index('E')]}>" if rest.startswith("ILi") else "")
+            if k in fn:  # the mangled name -> the kernel's
+                name = k
         lines.append(f"  sass {name}: {sum(c['all'].values())} instructions: {mix(c['all'])}; "
                      f"innermost loop of float work, {c['loop_len']} instructions: "
                      f"{mix(c['loop'])}")
@@ -204,10 +204,9 @@ def sass_lines(path) -> list:
 
 def timing(kernel, inp, reps_plain: int, card: str, torch):
     """Kernel time (a CUDA graph of 50 launches), the time of zeroing its
-    outputs (the writes alone), for the uv and Gouraud kernels their time
-    with every face invalid (tables read, no face staged or scanned,
-    background written), the twin's time (host loop, ``reps_plain`` calls)
-    and the bound at this input."""
+    outputs (the writes alone), its time with every face invalid (tables
+    read, no face staged or scanned, background written), the twin's time
+    (host loop, ``reps_plain`` calls) and the bound at this input."""
     from artiboost_torch.ops.raster_measure import (
         face_evaluations,
         raster_work,
@@ -218,13 +217,11 @@ def timing(kernel, inp, reps_plain: int, card: str, torch):
     ms = cuda_ms(lambda: kernel(inp), 50, graph=True)
     outs = kernel(inp)
     fill_ms = cuda_ms(lambda: [t.zero_() for t in outs], 50, graph=True)  # the writes alone
-    empty = ""
-    if not inp.tile:
-        blank = inp._replace(geom=inp.geom.clone())
-        blank.geom[..., 4, :] = -1e30  # ec0' of an invalid face
-        blank = kernel_tables(blank)
-        empty = (f", with every face invalid {cuda_ms(lambda: kernel(blank), 50, graph=True):.4f}"
-                 " ms")
+    blank = inp._replace(geom=inp.geom.clone())
+    blank.geom[..., 4, :] = -1e30  # ec0' of an invalid face
+    blank = kernel_tables(blank)
+    empty_ms = cuda_ms(lambda: kernel(blank), 50, graph=True)
+    del blank
     twin_args = inp.twin_args()
     plain_ms = cuda_ms(lambda: kernel.twin(*twin_args), reps_plain)
     B, n_pix = inp.geom.shape[0], inp.height * inp.width
@@ -236,12 +233,13 @@ def timing(kernel, inp, reps_plain: int, card: str, torch):
     tile = inp.tile[::-1] or (RASTER_TILE, RASTER_TILE)
     print(f"{kernel.name} timing ({card}): B={B} {inp.height}x{inp.width} "
           f"F={inp.order.shape[-1]} tile {tile[0]}x{tile[1]}: kernel {ms:.4f} ms, "
-          f"zeroing its outputs {fill_ms:.4f} ms{empty}, plain {plain_ms:.4f} ms, bound "
+          f"zeroing its outputs {fill_ms:.4f} ms, with every face invalid {empty_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms by "
           f"{bound_by} ({bound_ms / ms:.1%} of it reached; {read} B read, {written} B written, "
-          f"{pairs} pixel x face-box pairs = {pairs / (B * n_pix):.3f} a pixel); 1-D scan "
-          f"{chunk_px / (B * n_pix):.3f} chunks/pixel, {evals / (B * n_pix):.3f} face "
-          "evaluations/pixel", flush=True)
+          f"{pairs} pixel x face-box pairs = {pairs / (B * n_pix):.3f} a pixel); scan of "
+          f"every chunk in range {chunk_px / (B * n_pix):.3f} chunks/pixel, "
+          f"{evals / (B * n_pix):.3f} face evaluations/pixel", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 

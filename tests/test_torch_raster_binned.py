@@ -171,8 +171,9 @@ def test_binned_layout_and_dispatch(monkeypatch):
 
 def test_binned_kernel_input_checks():
     """What the kernel wrapper refuses before a launch: a range table that
-    does not tile the image, and a tile of more than 2048 pixels (256
-    threads x 8 pixels each)."""
+    does not tile the image; and that it takes a tile of more than 2048
+    pixels, as JAX's binned raster does (the kernel scans 16 x 16 windows of
+    each band, whatever the tile)."""
     c = CASES["ragged_16x5"]
     args = [torch.from_numpy(c[k]) for k in ("verts", "rgb", "faces", "valid")]
     inp = rc.prepare_raster_binned(*args, 24, 40, 16, 5)
@@ -193,9 +194,9 @@ def test_binned_kernel_input_checks():
     rgb, depth = rc.raster_rgb_binned(inp)  # on the CPU: the twin
     assert rgb.shape == (2, 24 * 40, 3) and depth.shape == (2, 24 * 40)
     big = rc.prepare_raster_binned(*args, 24, 300, 128, 17)
-    assert rc.MAX_BINNED_TILE_PX == 2048 and 128 * 17 > 2048
-    with pytest.raises(ValueError, match="more than 2048"):
-        rc._check_inputs("b3", big.ranges, big.geom, big.col, 24, 300, (128, 17))
+    assert 128 * 17 > 2048
+    rc._check_inputs("b3", big.ranges, big.geom, big.col, 24, 300, (128, 17))
+    rc._check_tables("b3", rc.kernel_tables(big))
 
 
 @pytest.mark.parametrize("seed,face_chunk,row_chunk", [(0, 32, 8), (2, 32, 8), (1, 50, 8)])

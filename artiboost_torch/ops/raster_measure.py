@@ -2,10 +2,9 @@
 them; ``tests/test_torch_raster_cull.py`` and
 ``tests/test_torch_raster_binned_cull.py`` hold them on the CPU): the work
 the inputs need, for a kernel's bound; the faces the kernels' tables leave
-each warp; the chunks of a scan of every chunk in a tile's range (the JAX
-kernel's and the first CUDA designs'); and the instruction mix of the
-compiled kernels' loops, read from ``cuobjdump -sass``. Nothing on the
-raster's path imports this module."""
+each warp; and the instruction mix of the compiled kernels' loops, read
+from ``cuobjdump -sass``. Nothing on the raster's path imports this
+module."""
 from __future__ import annotations
 
 import re
@@ -103,27 +102,6 @@ def scanned_faces(inp: RasterInputs) -> torch.Tensor:
     in_range = in_range[:, torch.div(y0, t, rounding_mode="floor")]  # (N, RY, NC)
     chunk_in = meets(chunk_box, window_x0, y0 - y0 % t, t)
     return in_range[:, :, None, :, None] & chunk_in & meets(face_box, x0, y0, r)
-
-
-def scanned_chunk_pixels(inp: RasterInputs) -> float:
-    """Sum over the tiles of a range table of (in-image pixels) x (chunks in
-    the tile's range): the pass-1 work of a scan of every chunk in range,
-    B3's design and the uv and Gouraud kernels' first one (on the twins'
-    1-D table)."""
-    ranges = inp.twin_args()[0]
-    span = (ranges[..., 1] - ranges[..., 0]).double()
-    dev = span.device
-    if inp.tile:  # binned (B, NB, YT): tiles of tile_rows x xbin_w, cropped
-        xbin_w, tile_rows = inp.tile
-        cols = torch.clamp(inp.width - torch.arange(span.shape[1], device=dev) * xbin_w,
-                           0, xbin_w)
-        rows = torch.clamp(inp.height - torch.arange(span.shape[2], device=dev) * tile_rows,
-                           0, tile_rows)
-        return float((span * (cols[:, None] * rows[None, :]).double()).sum())
-    n_pix = inp.height * inp.width
-    tile_pix = torch.clamp(n_pix - torch.arange(span.shape[1], device=dev) * TILE_PX,
-                           0, TILE_PX).double()
-    return float((span * tile_pix).sum())
 
 
 def face_evaluations(inp: RasterInputs) -> float:

@@ -54,7 +54,7 @@ N_ROWS = 16         # plane rows per chunk
 _LANE_MASK = 0x7F   # low 7 mantissa bits of the depth key carry the lane id
 TILE_PX = 256       # pixels per tile of the 1-D range table (the JAX kernel's tile_px)
 RASTER_TILE = 16  # side of the kernels' square pixel windows (kTile in raster.cu)
-RASTER_REGION = 8  # each warp of those kernels scans for an 8 x 8 region of its tile (kRegion)
+RASTER_REGION = 8  # each warp of those kernels scans for an 8 x 8 region of its window (kRegion)
 BOX_LIMIT = 10 ** 9  # boxes are clamped to +-BOX_LIMIT; an empty one is [BOX_LIMIT, -BOX_LIMIT)
 _TWIN_ELEMS = 1 << 24  # bound on the twin's (images, pixels, 128) temporaries
 

@@ -26,8 +26,7 @@ Phases, each fatal on failure:
      3.35 TB/s; ``raster_measure.raster_work``) and the operations (pixel x
      face-box pairs x 25, at 67 TFLOP/s FP32). Beside it: the time of
      zeroing the kernel's outputs (the writes alone), the kernel's time with
-     every face invalid (nothing staged or scanned), the chunks per pixel of
-     a scan of every chunk in a tile's range (the JAX kernel's) and the face
+     every face invalid (nothing staged or scanned) and the face
      evaluations per pixel that the kernel's tables leave;
   4. the val-and-mining slice at full width (config
      ho3dv2_clasbased_artiboost.yaml: ResNet34 in bfloat16, 224x224, batch
@@ -192,10 +191,8 @@ def sass_lines(path) -> list:
 
     lines = []
     for fn, c in sass_counts(res.stdout).items():
-        name = fn
-        for k in ("raster_uv_kernel", "raster_rgb_kernel", "raster_rgb_binned_kernel"):
-            if k in fn:  # the mangled name -> the kernel's
-                name = k
+        name = next((k for k in ("raster_uv_kernel", "raster_rgb_kernel",
+                                 "raster_rgb_binned_kernel") if k in fn), fn)  # unmangled
         lines.append(f"  sass {name}: {sum(c['all'].values())} instructions: {mix(c['all'])}; "
                      f"innermost loop of float work, {c['loop_len']} instructions: "
                      f"{mix(c['loop'])}")
@@ -207,11 +204,7 @@ def timing(kernel, inp, reps_plain: int, card: str, torch):
     outputs (the writes alone), its time with every face invalid (tables
     read, no face staged or scanned, background written), the twin's time
     (host loop, ``reps_plain`` calls) and the bound at this input."""
-    from artiboost_torch.ops.raster_measure import (
-        face_evaluations,
-        raster_work,
-        scanned_chunk_pixels,
-    )
+    from artiboost_torch.ops.raster_measure import face_evaluations, raster_work
     from artiboost_torch.ops.rasterizer_cuda import RASTER_TILE, kernel_tables
 
     ms = cuda_ms(lambda: kernel(inp), 50, graph=True)
@@ -229,7 +222,7 @@ def timing(kernel, inp, reps_plain: int, card: str, torch):
     t_bytes = (read + written) / H100_BYTES_PER_S
     t_ops = pairs * RASTER_OPS_PER_LANE / H100_FP32_OPS_PER_S
     bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
-    chunk_px, evals = scanned_chunk_pixels(inp), face_evaluations(inp)
+    evals = face_evaluations(inp)
     tile = inp.tile[::-1] or (RASTER_TILE, RASTER_TILE)
     print(f"{kernel.name} timing ({card}): B={B} {inp.height}x{inp.width} "
           f"F={inp.order.shape[-1]} tile {tile[0]}x{tile[1]}: kernel {ms:.4f} ms, "
@@ -237,8 +230,7 @@ def timing(kernel, inp, reps_plain: int, card: str, torch):
           f"plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms by "
           f"{bound_by} ({bound_ms / ms:.1%} of it reached; {read} B read, {written} B written, "
-          f"{pairs} pixel x face-box pairs = {pairs / (B * n_pix):.3f} a pixel); scan of "
-          f"every chunk in range {chunk_px / (B * n_pix):.3f} chunks/pixel, "
+          f"{pairs} pixel x face-box pairs = {pairs / (B * n_pix):.3f} a pixel); "
           f"{evals / (B * n_pix):.3f} face evaluations/pixel", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 

@@ -11,6 +11,7 @@ kept as uint8 on the device; the annotations stay on the host for the
 numpy geometry of ``HODataset``."""
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -159,11 +160,39 @@ class SyntheticHO(HODataset):
 DATASETS = {"SyntheticHO": SyntheticHO}
 
 
+REAL_DATA_TYPES = ("HO3D", "HO3DV3", "DexYCB", "FPHB")
+
+
+def missing_real_data(kind: str, cfg: Dict) -> Optional[str]:
+    """The ``FileNotFoundError`` message of the JAX package's real-data
+    type ``kind`` when the directory it tests is absent (``ho3d.py:95-99``,
+    ``dexycb.py:104-105``, ``fhb.py:78-81``), else None."""
+    root = cfg.get("DATA_ROOT", "./data")
+    if kind in ("HO3D", "HO3DV3"):
+        split_dir = "train" if cfg.get("DATA_SPLIT", "train") in ("train", "trainval", "val") \
+            else "evaluation"
+        path = os.path.join(root, "HO3D" if kind == "HO3D" else "HO3D_v3", split_dir)
+        name, probe = "HO3D", path
+    elif kind == "DexYCB":
+        name, path = "DexYCB", os.path.join(root, "DexYCB")
+        probe = path
+    else:
+        name, path = "FPHB", os.path.join(root, "fhbhands")
+        probe = os.path.join(path, "Hand_pose_annotation_v1")
+    return None if os.path.isdir(probe) else f"{name} data not found under {path}"
+
+
 def build_dataset(cfg: Dict, data_preset: Dict, device=None) -> HODataset:
-    """A ``DATASET.TRAIN`` / ``TEST`` node -> dataset. A type that is not
-    ported raises with its name."""
+    """A ``DATASET.TRAIN`` / ``TEST`` node -> dataset. A real-data type
+    whose data is absent raises ``FileNotFoundError`` as the JAX package's
+    does (the entry point then trains synth-only or skips the test passes);
+    one whose data is present, or any other type the port lacks, raises
+    ``NotImplementedError`` with its name."""
     cfg = dict(cfg)
     kind = cfg.pop("TYPE")
+    missing = missing_real_data(kind, cfg) if kind in REAL_DATA_TYPES else None
+    if missing:
+        raise FileNotFoundError(missing)
     if kind not in DATASETS:
         raise NotImplementedError(f"dataset {kind!r} is not ported yet "
                                   f"(ported: {sorted(DATASETS)})")

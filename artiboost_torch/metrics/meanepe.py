@@ -1,5 +1,5 @@
 """Mean end-point error (counterpart of ``artiboost_tpu/metrics/meanepe.py``
-``Mean3DEPE``; reference ``anakin/metrics/meanepe.py``): masked
+``Mean3DEPE`` and ``Mean2DEPE``; reference ``anakin/metrics/meanepe.py``): masked
 (sum, count) pairs accumulated on the device per VAL_KEY. A key ending
 in ``_abs`` is held against the root-relative target plus the root; the
 union-batch validity of both masks the sample, as does SAMPLE_VALID, and
@@ -64,3 +64,11 @@ class Mean3DEPE:
 
     def __str__(self) -> str:
         return " | ".join(f"{k}_mepe: {m.avg:6.4f}" for k, m in self.avg_meters().items())
+
+
+class Mean2DEPE(Mean3DEPE):
+    """Mean3DEPE over 2D keys, always in the keys' own unit (pixels)."""
+
+    def __init__(self, **cfg) -> None:
+        super().__init__(**cfg)
+        self.to_millimeters = False

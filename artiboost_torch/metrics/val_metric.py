@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from artiboost_torch.datasets.hoquery import Queries, SynthQueries
@@ -34,6 +35,12 @@ class CCVMeter:
         """-> (avg_map, seen_mask)."""
         seen = self.count_map > 0
         return self.sum_map / torch.clamp_min(self.count_map, 1.0), seen
+
+    def as_dict(self) -> Dict[Tuple[int, int, int], float]:
+        """{(obj, persp, grasp): average} over the seen triplets (host)."""
+        avg, seen = self.averaged()
+        avg, seen = avg.cpu().numpy(), seen.cpu().numpy()
+        return {tuple(int(i) for i in idx): float(avg[tuple(idx)]) for idx in np.argwhere(seen)}
 
 
 def epe_values(pred: torch.Tensor, targ_rel: torch.Tensor, root: torch.Tensor) -> torch.Tensor:
@@ -76,3 +83,18 @@ class ValMetricMean3DEPE2:
         """Dense (avg_map, seen_mask), averaged over VAL_KEYS."""
         maps = [m.averaged() for m in self.meters.values()]
         return sum(m[0] for m in maps) / len(maps), maps[0][1]
+
+    def get_measures(self) -> Dict[str, Dict[Tuple[int, int, int], float]]:
+        """Per VAL_KEY, the seen triplets' averages (``val_metric.py:107-108``)."""
+        return {k: self.meters[k].as_dict() for k in self.val_keys_list}
+
+    def get_scalar_measures(self) -> Dict[str, float]:
+        """The mean over seen triplets, for the scalar dumps
+        (``val_metric.py:125-131``)."""
+        avg, seen = self.get_averaged_maps()
+        seen_f = seen.float()
+        return {"val_epe_mean": float(torch.sum(avg * seen_f)
+                                      / torch.clamp_min(torch.sum(seen_f), 1.0))}
+
+    def __str__(self):
+        return ""

@@ -46,6 +46,7 @@ import torch
 
 from artiboost_torch.ops.cuda_build import build_library
 from artiboost_torch.ops.rasterizer import ScreenFace, build_screen_faces
+from artiboost_torch.utils.profiling import trace
 
 _BIG = 1e30
 _EPS_EDGE = -1e-6
@@ -242,13 +243,14 @@ def prepare_raster(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
     if vert_attrs.shape[-1] not in (3, 4):
         raise ValueError("the raster takes (r, g, b) or (u, v, shade, page) attrs, "
                          f"got {tuple(vert_attrs.shape)}")
-    n_chunks = (faces.shape[-2] + LANE - 1) // LANE
-    sf = build_screen_faces(verts_screen, vert_attrs, faces, face_valid,
-                            cull_backfaces=cull_backfaces)
-    sf, order = _sort_faces(sf)
-    geom, col = pack_faces(sf, n_chunks)
-    inp = RasterInputs(geom, col, order, height, width, extents=_chunk_extents(sf, n_chunks))
-    return kernel_tables(inp) if geom.is_cuda else inp
+    with trace("raster/prepare_raster"):
+        n_chunks = (faces.shape[-2] + LANE - 1) // LANE
+        sf = build_screen_faces(verts_screen, vert_attrs, faces, face_valid,
+                                cull_backfaces=cull_backfaces)
+        sf, order = _sort_faces(sf)
+        geom, col = pack_faces(sf, n_chunks)
+        inp = RasterInputs(geom, col, order, height, width, extents=_chunk_extents(sf, n_chunks))
+        return kernel_tables(inp) if geom.is_cuda else inp
 
 
 def prepare_raster_binned(verts_screen: torch.Tensor, vert_colors: torch.Tensor,

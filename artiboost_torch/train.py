@@ -1,28 +1,37 @@
 """ArtiBoost training on PyTorch (counterpart of
-``train/train_artiboost.py:240-370``).
+``train/train_artiboost.py:224-381``).
 
-``run`` builds the train dataset (``DATASET.TRAIN``), the model, the
-criterion, the evaluator and the ArtiBoostLoader, runs the startup
-``prepare()`` (the reference runs it at startup AND at the top of every
-epoch, which double-counts the occurrence map; kept for parity), then per
-epoch: ``prepare()``; the train epoch over mixed real+synth batches (the
-real half from the dataset, the synth half rendered from the epoch's
-poses, joined over the key union, then the train step, the evaluator fed
-with preds, batch and losses); when ``should_val``, ``prepare_val()`` and
-the val pass, which refills the evaluator; then ``step_eval()`` (the
-mining reweight) from whatever the evaluator holds, so an epoch without a
-val sweep mines from the train epoch as the JAX package does. With a
-``Recorder`` (``utils/recorder.py``) each epoch's measures go to
+``run`` builds the train and test datasets (``DATASET.TRAIN``,
+``DATASET.TEST``; a real-data split whose data is absent is skipped as the
+JAX package skips it: synth-only training, no test passes), the model, the
+criterion, the evaluator, the test evaluator (the evaluator's metrics less
+``ValMetric*``) and the ArtiBoostLoader, runs the startup ``prepare()``
+(the reference runs it at startup AND at the top of every epoch, which
+double-counts the occurrence map; kept for parity), then per epoch:
+``prepare()``; the train epoch over mixed real+synth batches (the real half
+from the dataset, the synth half rendered from the epoch's poses, joined
+over the key union, then the train step, the evaluator fed with preds,
+batch and losses); when ``should_val``, ``prepare_val()`` and the val
+pass, which refills the evaluator; then ``step_eval()`` (the mining
+reweight) from whatever the evaluator holds, so an epoch without a val
+sweep mines from the train epoch as the JAX package does; then, every
+``test_freq`` epochs, the TEST pass over the whole test split. With a
+``Recorder`` (``utils/recorder.py``) each pass's measures go to
 ``evaluations/`` and, after ``step_eval``, a checkpoint to
 ``checkpoints/``; a resume restores the model, optimizer, schedule, RNG
 states and the ArtiBoost state after the startup ``prepare()`` and goes on
 from the first epoch the checkpoint had not completed (JAX
-``train_artiboost.py:283, 309-316, 342-370``).
+``train_artiboost.py:283, 309-316, 342-378``). ``evaluate`` runs one TEST
+pass instead of training. A ``Summarizer`` (``utils/summarizer.py``) gets
+the losses every ``LOG_EVERY`` train steps and each evaluator after its
+pass; ``profile`` traces epoch 0 with ``torch.profiler``
+(``utils/profiling.py``).
 
 Usage:
     python -m artiboost_torch.train --cfg config/synthetic_smoke.yaml \\
-        [--epochs N] [--device cuda|cpu] [--exp_id NAME] [--snapshot 10] [--allow_dirty]
-    python -m artiboost_torch.train --resume exp/<exp_id>_<timestamp> [--device cpu]
+        [--epochs N] [--batch_size B] [--device cuda|cpu] [--exp_id NAME] [--snapshot 50] \\
+        [--test_freq 5] [--profile_dir DIR] [--profile_steps 20] [--allow_dirty]
+    python -m artiboost_torch.train --resume exp/<exp_id>_<timestamp> [--evaluate] [--device cpu]
 """
 from __future__ import annotations
 
@@ -31,20 +40,25 @@ import logging
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from artiboost_torch.artiboost.loader import ArtiBoostLoader, DrawSource
 from artiboost_torch.criterions import build_criterion
+from artiboost_torch.datasets.hodata import padded_host_loader
 from artiboost_torch.datasets.synthetic import build_dataset
 from artiboost_torch.metrics.evaluator import Evaluator, build_evaluator
 from artiboost_torch.models.arch import build_arch
 from artiboost_torch.parallel.train_state import TrainStep, eval_step
+from artiboost_torch.utils import profiling
 from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.config import load_config
 from artiboost_torch.utils.misc import LOG_FORMAT, logger, resolve_device
 from artiboost_torch.utils.recorder import Recorder
+from artiboost_torch.utils.summarizer import Summarizer
+
+LOG_EVERY = 20  # train steps between loss summaries (train_artiboost.py:92)
 
 
 class StageTimer:
@@ -82,21 +96,30 @@ def slice_config(cfg: Dict) -> Dict:
 
 
 def train_epoch(loader: ArtiBoostLoader, step: TrainStep, evaluator: Evaluator,
-                timer: StageTimer) -> Dict:
+                timer: StageTimer, summarizer: Optional[Summarizer] = None,
+                stop_trace_after: Optional[int] = None) -> Dict:
     """One train epoch: -> {"steps", "images", "seconds" (host wall clock
-    of the epoch), "final_loss": [per-step device scalars]}."""
+    of the epoch), "final_loss": [per-step device scalars]}. Each step is a
+    trace range ``train#<optimizer step>``; a running trace stops after
+    step ``stop_trace_after``."""
     evaluator.reset_all()
     out = {"steps": 0, "images": 0, "final_loss": []}
     t = t_start = timer.mark()
-    for real, sidx in loader.iter_parts():
+    for bidx, (real, sidx) in enumerate(loader.iter_parts()):
         t = timer.add("real batch", t)
-        synth = None if sidx is None else loader.synth_part(sidx)
-        t = timer.add("synth batch", t)
-        batch = union_concat([p for p in (real, synth) if p])
-        preds, losses = step(batch, loader.draws.loss(step.criterion))
-        t = timer.add("train step", t)
-        evaluator.feed_all(preds, batch, losses)
-        t = timer.add("metric+mining", t)
+        with profiling.step_trace("train", step.step):
+            synth = None if sidx is None else loader.synth_part(sidx)
+            t = timer.add("synth batch", t)
+            batch = union_concat([p for p in (real, synth) if p])
+            with profiling.trace("artiboost/train_step"):
+                preds, losses = step(batch, loader.draws.loss(step.criterion))
+                t = timer.add("train step", t)
+            evaluator.feed_all(preds, batch, losses)
+            if summarizer is not None and bidx % LOG_EVERY == 0:
+                summarizer.summarize_losses(losses, step.step, prefix="train")
+            t = timer.add("metric+mining", t)
+        if bidx == stop_trace_after and profiling.stop_trace():
+            t = timer.mark()
         out["steps"] += 1
         out["images"] += int(batch["image"].shape[0])
         out["final_loss"].append(losses["final_loss"])
@@ -122,19 +145,54 @@ def val_epoch(loader: ArtiBoostLoader, model: torch.nn.Module, criterion,
     return out
 
 
+def test_epoch(test_data, batch_size: int, model: torch.nn.Module, criterion,
+               evaluator: Evaluator, draws: DrawSource, timer: StageTimer) -> Dict:
+    """The TEST pass (``train_artiboost.py:372-378``): every sample of the
+    test split once, the tail batch repeat-padded and masked by
+    SAMPLE_VALID (``padded_host_loader``), through the model with its
+    running statistics; the evaluator refilled. Charged to the stage
+    ``test pass``. -> {"batches", "images"}."""
+    evaluator.reset_all()
+    out = {"batches": 0, "images": len(test_data)}
+    t = timer.mark()
+    for batch in padded_host_loader(test_data, batch_size):
+        preds, losses = eval_step(model, criterion, batch, draws.loss(criterion))
+        evaluator.feed_all(preds, batch, losses)
+        out["batches"] += 1
+    timer.add("test pass", t)
+    return out
+
+
+def _build_split(cfg: Dict, split: str, device, skipped: str):
+    """DATASET.<split>, or None when the config has none or its real data
+    is absent (``train_artiboost.py:242-254``)."""
+    if split not in cfg.get("DATASET", {}):
+        return None
+    try:
+        return build_dataset(cfg["DATASET"][split], cfg["DATA_PRESET"], device=device)
+    except FileNotFoundError as e:
+        logger.warning(f"{split.lower()} dataset unavailable ({e}); {skipped}")
+        return None
+
+
 def run(cfg: Dict, epochs: Optional[int] = None, device=None,
         model_state: Optional[Dict[str, torch.Tensor]] = None,
         draws: Optional[DrawSource] = None, timer: Optional[StageTimer] = None,
-        recorder: Optional[Recorder] = None, resume: bool = False, snapshot: int = 10) -> Dict:
+        recorder: Optional[Recorder] = None, resume: bool = False, snapshot: int = 50,
+        summarizer: Optional[Summarizer] = None, test_freq: int = 5, evaluate: bool = False,
+        profile: Optional[Tuple[str, int]] = None) -> Dict:
     """Train for ``epochs`` (default TRAIN.EPOCH). ``device`` None means
     CUDA (raises without one). ``model_state`` is a HybridBaseline state
     dict (e.g. from ``hybrid_baseline_from_flax``); without it the weights
     are torch's initialisation under TRAIN.MANUAL_SEED. ``draws`` replaces
     the loader's random draws. ``recorder`` records the run and its
     checkpoints (``snapshot``: numbered every that many epochs);
-    ``resume`` continues from the recorder's latest checkpoint. Returns
-    the loader, evaluator, model, train step, timer and the per-epoch
-    counts."""
+    ``resume`` continues from the recorder's latest checkpoint.
+    ``test_freq``: a TEST pass every that many epochs (0: none);
+    ``evaluate``: one TEST pass, no training (raises without a TEST
+    split). ``profile`` = (directory, steps): a trace from epoch 0's
+    ``prepare()`` through its train step ``steps``. Returns the loader, the
+    evaluators, model, train step, timer and the per-epoch counts."""
     if resume and recorder is None:
         raise ValueError("resume needs the recorder of the experiment to resume")
     device = resolve_device(device)
@@ -145,11 +203,14 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
     timer = timer or StageTimer(device)
 
     t = timer.mark()
-    train_data = None
-    if "TRAIN" in cfg.get("DATASET", {}):
-        train_data = build_dataset(cfg["DATASET"]["TRAIN"], data_preset, device=device)
+    train_data = _build_split(cfg, "TRAIN", device, "synth-only training")
+    test_data = _build_split(cfg, "TEST", device, "skipping test passes")
     t = timer.add("dataset init", t)
-    evaluator = build_evaluator(cfg.get("EVALUATOR", []), device=device)
+    metric_cfgs = cfg.get("EVALUATOR", [])
+    evaluator = build_evaluator(metric_cfgs, data_preset, device=device)
+    test_evaluator = build_evaluator([m for m in metric_cfgs
+                                      if not m["TYPE"].startswith("ValMetric")],
+                                     data_preset, device=device)
     criterion = build_criterion(cfg)
     loader = ArtiBoostLoader(train_data, cfg=slice_config(cfg), batch_size=batch_size,
                              n_epochs=n_epochs, seed=seed, device=device, draws=draws)
@@ -172,21 +233,51 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
         if ab_state is not None:
             loader.load_state_dict(ab_state)
         logger.info(f"resumed from epoch {epoch_start}")
-    history = []
+    out = {"loader": loader, "evaluator": evaluator, "test_evaluator": test_evaluator,
+           "model": arch, "step": step, "timer": timer, "history": [],
+           "train_data": train_data, "test_data": test_data}
+
+    def test_pass(epoch: int) -> Dict:
+        res = test_epoch(test_data, batch_size, arch, criterion, test_evaluator,
+                         loader.draws, timer)
+        res["measures"] = test_evaluator.get_measures_all_striped()
+        if recorder is not None:
+            recorder.record_evaluator(test_evaluator, epoch, "test")
+        logger.info(f"test epoch {epoch}: {res['batches']} batches | {test_evaluator}")
+        return res
+
+    if evaluate:
+        if test_data is None:
+            raise RuntimeError("--evaluate requires a TEST dataset")
+        out["history"].append({"epoch": epoch_start, "test": test_pass(epoch_start)})
+        return out
+
     for epoch in range(epoch_start, n_epochs):
+        traced = profile is not None and epoch == 0
+        if traced:
+            profiling.start_trace(profile[0])
         t = timer.mark()
-        loader.prepare()
+        with profiling.trace("artiboost/prepare"):
+            loader.prepare()
         timer.add("pose sweep", t)
-        record = {"epoch": epoch, "train": train_epoch(loader, step, evaluator, timer)}
-        record["train"]["measures"] = evaluator.get_measures_all()
+        record = {"epoch": epoch, "train": train_epoch(
+            loader, step, evaluator, timer, summarizer,
+            stop_trace_after=profile[1] if traced else None)}
+        profiling.stop_trace()  # a no-op unless a short epoch left the trace running
+        record["train"]["measures"] = evaluator.get_measures_all_striped()
+        if summarizer is not None:
+            summarizer.summarize_evaluator(evaluator, epoch, "train")
         if recorder is not None:
             recorder.record_evaluator(evaluator, epoch, "train")
         if loader.should_val(epoch):
             t = timer.mark()
-            loader.prepare_val()
+            with profiling.trace("artiboost/prepare_val"):
+                loader.prepare_val()
             timer.add("pose sweep", t)
             record["val"] = val_epoch(loader, arch, criterion, evaluator, timer)
-            record["val"]["measures"] = evaluator.get_measures_all()
+            record["val"]["measures"] = evaluator.get_measures_all_striped()
+            if summarizer is not None:
+                summarizer.summarize_evaluator(evaluator, epoch, "val")
             if recorder is not None:
                 recorder.record_evaluator(evaluator, epoch, "val")
         t = timer.mark()
@@ -197,21 +288,35 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
         record["train"]["final_loss"] = [float(v) for v in record["train"]["final_loss"]]
         logger.info(f"epoch {epoch}: {record['train']['steps']} train steps, "
                     f"{record.get('val', {}).get('batches', 0)} val batches | {evaluator}")
-        history.append(record)
-    return {"loader": loader, "evaluator": evaluator, "model": arch, "step": step,
-            "timer": timer, "history": history, "train_data": train_data}
+        if test_data is not None and test_freq > 0 and (epoch + 1) % test_freq == 0:
+            record["test"] = test_pass(epoch)
+            if summarizer is not None:
+                summarizer.summarize_evaluator(test_evaluator, epoch, "test")
+        out["history"].append(record)
+    return out
 
 
-def main(argv=None):
+def main(argv=None) -> Dict:
+    """The command line (``artiboost_tpu/opt.py``'s flags that the port
+    runs) -> ``run``'s result, with the experiment's ``dump_path``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cfg", default=None)
     ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--batch_size", type=int, default=None, help="overrides TRAIN.BATCH_SIZE")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--exp_id", default="default")
     ap.add_argument("--resume", default=None,
                     help="experiment directory to resume; its dump_cfg.yaml is the config")
-    ap.add_argument("--snapshot", type=int, default=10,
+    ap.add_argument("--evaluate", action="store_true",
+                    help="run one TEST pass (of the resumed model) instead of training")
+    ap.add_argument("--snapshot", type=int, default=50,
                     help="keep a numbered checkpoint every this many epochs")
+    ap.add_argument("--test_freq", type=int, default=5,
+                    help="a TEST pass every this many epochs (0: none)")
+    ap.add_argument("--profile_dir", default=None,
+                    help="write a torch.profiler Chrome trace of epoch 0 here")
+    ap.add_argument("--profile_steps", type=int, default=20,
+                    help="the trace ends after this train step of epoch 0")
     ap.add_argument("--allow_dirty", action="store_true",
                     help="record a named experiment from an uncommitted tree")
     args = ap.parse_args(argv)
@@ -225,16 +330,25 @@ def main(argv=None):
         cfg = load_config(args.cfg)
     else:
         ap.error("--cfg is required unless --resume is given")
+    if args.batch_size:
+        cfg.setdefault("TRAIN", {})["BATCH_SIZE"] = args.batch_size
     recorder = Recorder(args.exp_id, cfg, resume_path=args.resume, allow_dirty=args.allow_dirty)
+    summarizer = Summarizer(recorder.dump_path)
+    profile = (args.profile_dir, args.profile_steps) if args.profile_dir else None
     try:
         out = run(cfg, epochs=args.epochs, device=device, recorder=recorder,
-                  resume=bool(args.resume), snapshot=args.snapshot)
+                  resume=bool(args.resume), snapshot=args.snapshot, summarizer=summarizer,
+                  test_freq=args.test_freq, evaluate=args.evaluate, profile=profile)
     finally:
+        summarizer.close()
         recorder.close()
-    w = out["loader"].ccv.sample_weight_map
-    losses = [v for r in out["history"] for v in r["train"]["final_loss"]]
-    logger.info(f"done: {len(losses)} train steps, final_loss {losses[0]:.5f} -> "
-                f"{losses[-1]:.5f}; weight map [{float(w.min()):.3f}, {float(w.max()):.3f}]")
+    out["dump_path"] = recorder.dump_path
+    losses = [v for r in out["history"] for v in r.get("train", {}).get("final_loss", [])]
+    if losses:
+        w = out["loader"].ccv.sample_weight_map
+        logger.info(f"done: {len(losses)} train steps, final_loss {losses[0]:.5f} -> "
+                    f"{losses[-1]:.5f}; weight map [{float(w.min()):.3f}, {float(w.max()):.3f}]")
+    return out
 
 
 if __name__ == "__main__":

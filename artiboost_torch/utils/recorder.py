@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import yaml
 
+from artiboost_torch.metrics.vismetric import VisMetric
 from artiboost_torch.utils.misc import logger
 
 
@@ -222,12 +223,17 @@ class Recorder:
         _draw_arch_png(list(arch.names), edges, path + ".png")
 
     def record_evaluator(self, evaluator, epoch: int, split: str = "train") -> Dict:
-        """The evaluator's scalar measures as ``<split>_epoch_<n>.json`` and
-        its summary line as ``.txt`` under ``evaluations/``."""
-        measures = evaluator.get_measures_all()
+        """The evaluator's scalar measures (``get_measures_all_striped``) as
+        ``<split>_epoch_<n>.json``, its summary line as ``.txt`` and each
+        visualisation metric's image as ``<split>_epoch_<n>_<Metric>.png``
+        under ``evaluations/``."""
+        measures = evaluator.get_measures_all_striped()
         path = os.path.join(self.eval_dir, f"{split}_epoch_{epoch}")
         with open(path + ".json", "w") as f:
             json.dump(measures, f, indent=2, default=float)
         with open(path + ".txt", "w") as f:
             f.write(str(evaluator) + "\n")
+        for metric in evaluator.metrics_list:
+            if isinstance(metric, VisMetric) and metric.images is not None:
+                metric.images.save(path + f"_{type(metric).__name__}.png")
         return measures

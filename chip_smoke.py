@@ -45,11 +45,25 @@ Phases, each fatal on failure:
      (SyntheticHO N_SAMPLES 160, VAL_LEN 128) checkpoints epoch 1 into a
      temporary experiment directory; a fresh ``run`` resumes it, the
      restored model, optimizer, schedule and ArtiBoost state are held
-     bit-equal to what was saved, and epoch 2 runs.
-Every launch counter is zeroed just before phases 4, 5, 6 and 7 and read
-just after each. TF32 is off. The lines before the last: the kernel table
-as one JSON object (B1 and B2 launches from phase 5, B3 launches from phase
-6) and the card's name and power limit; the last line: the ok JSON.
+     bit-equal to what was saved, and epoch 2 runs;
+  8. the released entry point at full width: ``artiboost_torch.train.main``
+     on config/ho3dv2_clasbased_artiboost.yaml with DATASET.TRAIN left as
+     HO3D, whose data is absent, so it trains synth-only
+     (CONFIG_LEN_TRAIN 1024: 8 steps of 128), DATASET.TEST a SyntheticHO
+     split (RAW_SIZE 512, N_SAMPLES 200: a batch of 128 and one of 72
+     padded to 128), VAL_LEN 2 x 128, EVAL_FREQ 1, VAL_START_EPOCH 0,
+     2 epochs, ``--test_freq 1``, ``--profile_dir`` and ``--profile_steps
+     6``; then ``--resume <dir> --evaluate``. It checks the synth-only
+     fallback, the 2 + 1 TEST passes, every evaluation JSON (PCK
+     ``auc_all`` in [0, 1], finite EPEs), the Vis2D images (6 x 224
+     square), the TensorBoard tags, the trace and the launches (13 rgb for
+     the TEST init, uv for every train step and val batch, no binned), and
+     prints from the trace the device idle share, the train step's host and
+     device time and ``prepare_raster``'s host time against B1's.
+Every launch counter is zeroed just before phases 4, 5, 6, 7 and 8 and
+read just after each. TF32 is off. The lines before the last: the kernel
+table as one JSON object (B1 and B2 launches from phase 8, B3 launches from
+phase 6) and the card's name and power limit; the last line: the ok JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
 """
@@ -316,6 +330,180 @@ def checkpoint_resume(cfg, init, device) -> str:
     return (f"epoch 1 saved and resumed bit-equal (model {len(saved['model'])} tensors, "
             f"optimizer, schedule step {saved['step']}, ArtiBoost maps and generator), epoch 2 "
             f"run, checkpoints {files}; {time.perf_counter() - t0:.2f} s for both runs")
+
+
+def _union_ms(intervals, lo, hi) -> float:
+    """ms covered by the union of (start, end) intervals (us) within [lo, hi]."""
+    total, end = 0.0, lo
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in intervals if a < hi and b > lo):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def trace_figures(path: str) -> dict:
+    """Phase 8's figures from its Chrome trace, over train steps 1 to the
+    last traced one (step 0 holds first-use costs): the device idle share
+    (1 - the union of kernel, memcpy and memset intervals over the window's
+    wall time); per ``artiboost/train_step`` range its wall time, the host
+    time until the stage's ``cudaDeviceSynchronize`` and the device's busy
+    time inside it; the host time in ``raster/prepare_raster`` against the
+    ``raster_uv_kernel`` time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def spans(cat, pred, lo=-math.inf, hi=math.inf):
+        """Events of category ``cat`` whose name passes ``pred``, inside [lo, hi]."""
+        return [e for e in events if e.get("cat") == cat and pred(e["name"])
+                and lo <= e["ts"] and e["ts"] + e["dur"] <= hi]
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    steps = sorted(spans("user_annotation", lambda n: n.startswith("train#")), key=lambda e: e["ts"])
+    check(len(steps) >= 2, f"the trace holds {len(steps)} train steps")
+    lo, hi = steps[1]["ts"], max(e["ts"] + e["dur"] for e in steps[1:])
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = _union_ms(device, lo, hi)
+    wall = (hi - lo) / 1e3
+    split = []
+    for r in spans("user_annotation", lambda n: n == "artiboost/train_step", lo, hi):
+        a, b = r["ts"], r["ts"] + r["dur"]
+        wait = sum(e["dur"] for e in spans("cuda_runtime", lambda n: "Synchronize" in n, a, b))
+        split.append((r["dur"] / 1e3, (r["dur"] - wait) / 1e3, _union_ms(device, a, b)))
+    prep = [e["dur"] / 1e3 for e in spans("user_annotation",
+                                          lambda n: n == "raster/prepare_raster", lo, hi)]
+    uv = [e["dur"] / 1e3 for e in spans("kernel", lambda n: "raster_uv_kernel" in n, lo, hi)]
+    check(split and prep and uv, f"the trace window lacks train_step ({len(split)}), "
+          f"prepare_raster ({len(prep)}) or raster_uv_kernel ({len(uv)}) events")
+    return {"steps": len(steps) - 1, "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "step_wall_ms": mean([x[0] for x in split]), "step_host_ms": mean([x[1] for x in split]),
+            "step_device_ms": mean([x[2] for x in split]), "n_step": len(split),
+            "prep_ms": mean(prep), "n_prep": len(prep), "uv_ms": mean(uv), "n_uv": len(uv)}
+
+
+def event_tags(run_dir: str) -> set:
+    """The scalar tags of every TensorBoard event file under ``run_dir``."""
+    from tensorboard.backend.event_processing.event_file_loader import LegacyEventFileLoader
+
+    tags = set()
+    for name in os.listdir(run_dir):
+        if name.startswith("events.out.tfevents."):
+            for ev in LegacyEventFileLoader(os.path.join(run_dir, name)).Load():
+                tags.update(v.tag for v in ev.summary.value)
+    return tags
+
+
+def released_entry_point(card: str, read_counts, zero_counts) -> dict:
+    """Phase 8: ``artiboost_torch.train.main`` on the released config at
+    full width, DATASET.TRAIN left as HO3D (absent: synth-only) and
+    DATASET.TEST a SyntheticHO split of 200 images; 2 epochs, a TEST pass
+    after each, a trace of epoch 0; then ``--resume <dir> --evaluate``.
+    Everything it writes is removed. -> the launches of the training run."""
+    import torch
+    import yaml
+
+    from artiboost_torch import train
+    from artiboost_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
+    cfg["DATASET"]["TEST"] = {"TYPE": "SyntheticHO", "DATA_SPLIT": "test", "AUG": False,
+                              "RAW_SIZE": 512, "N_SAMPLES": 200}
+    cfg["MANAGER"].update(CONFIG_LEN_TRAIN=1024, VAL_LEN=2 * 128)
+    cfg["TRAIN"].update(EVAL_FREQ=1, VAL_START_EPOCH=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    dump = None
+    try:
+        cfg_path = os.path.join(tmp, "released.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = train.main(["--cfg", cfg_path, "--exp_id", "smoke", "--epochs", "2",
+                          "--test_freq", "1", "--profile_dir", os.path.join(tmp, "trace"),
+                          "--profile_steps", "6"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        dump = out["dump_path"]
+        hist, loader = out["history"], out["loader"]
+        check(out["train_data"] is None and loader._mixed_counts() == (0, 128)
+              and len(loader) == 8, "the released config did not train synth-only, 8 steps of 128")
+        steps = sum(r["train"]["steps"] for r in hist)
+        val_batches = sum(r.get("val", {}).get("batches", 0) for r in hist)
+        tests = [r["test"] for r in hist if "test" in r]
+        check(steps == 16 and val_batches == 4 and len(tests) == 2
+              and all(t["batches"] == 2 and t["images"] == 200 for t in tests),
+              f"ran {steps} train steps, {val_batches} val batches, test passes "
+              f"{[(t['batches'], t['images']) for t in tests]}")
+        check(launches == {"raster_uv": steps + val_batches, "raster_rgb": math.ceil(200 / 16),
+                           "raster_rgb_binned": 0},
+              f"phase 8 launches {launches}, expected {steps + val_batches} uv, 13 rgb, 0 binned")
+        losses = [v for r in hist for v in r["train"]["final_loss"]]
+        check(all(math.isfinite(v) for v in losses), f"non-finite train loss: {losses}")
+        images = hist[1]["train"]["images"]
+        rate = images / hist[1]["train"]["seconds"]
+        traced_rate = hist[0]["train"]["images"] / hist[0]["train"]["seconds"]
+        timer = out["timer"]
+        del out, loader
+
+        zero_counts()
+        ev = train.main(["--resume", dump, "--evaluate"])
+        check([set(r) for r in ev["history"]] == [{"epoch", "test"}]
+              and ev["history"][0]["epoch"] == 2 and ev["history"][0]["test"]["batches"] == 2,
+              f"--evaluate ran {ev['history']}")
+        check(read_counts() == {"raster_uv": 0, "raster_rgb": 13, "raster_rgb_binned": 0},
+              f"--evaluate launched {read_counts()}, expected the TEST init's 13 rgb alone")
+        del ev
+
+        evals = os.path.join(dump, "evaluations")
+        from PIL import Image
+
+        for split, epochs in (("train", (0, 1)), ("val", (0, 1)), ("test", (0, 1, 2))):
+            for e in epochs:
+                with open(os.path.join(evals, f"{split}_epoch_{e}.json")) as f:
+                    m = json.load(f)
+                for name in ("Hand3DPCKMetric", "Obj3DPCKMetric"):
+                    auc, epe = m[name]["auc_all"], m[name]["epe_mean_all"]
+                    check(math.isfinite(auc) and 0 <= auc <= 1 and math.isfinite(epe),
+                          f"{split} epoch {e} {name}: auc {auc}, epe {epe}")
+                check(all(math.isfinite(v) for v in m["Mean3DEPE"].values()),
+                      f"{split} epoch {e} Mean3DEPE {m['Mean3DEPE']}")
+                png = os.path.join(evals, f"{split}_epoch_{e}_Vis2DMetric.png")
+                with Image.open(png) as im:
+                    check(im.size == (6 * 224, 6 * 224), f"{png} is {im.size}")
+        tags = event_tags(os.path.join(dump, "runs"))
+        want = {"train/loss/final_loss"} | {f"{s}/{m}" for s in ("train", "val", "test") for m in (
+            "LossesMetric/final_loss", "Hand3DPCKMetric/auc_all", "Obj3DPCKMetric/auc_all",
+            "Mean3DEPE/joints_3d_abs_mepe")} | {"val/ValMetricMean3DEPE2/val_epe_mean"}
+        check(want <= tags, f"the event file lacks {sorted(want - tags)}")
+        traces = [os.path.join(tmp, "trace", n) for n in os.listdir(os.path.join(tmp, "trace"))]
+        check(len(traces) == 1, f"expected one trace, found {traces}")
+        fig = trace_figures(traces[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dump:
+            shutil.rmtree(dump, ignore_errors=True)
+    print(f"released entry point ({card}): synth-only (HO3D absent), 2 epochs in {wall:.2f} s: "
+          f"{steps} steps of 128, {val_batches} val batches, 2 TEST passes of 200 SyntheticHO "
+          f"images (2 batches, the second padded from 72) and one --evaluate pass; launches "
+          f"{launches}; train {rate:.2f} img/s in epoch 1 ({traced_rate:.2f} in the traced "
+          f"epoch 0); final_loss {losses[0]:.6f} -> {losses[-1]:.6f}; evaluations, Vis2D "
+          f"images, {len(tags)} TensorBoard tags and the trace checked", flush=True)
+    for stage in ("dataset init", "pose sweep", "synth batch", "train step", "forward",
+                  "metric+mining", "test pass"):
+        n = max(timer.calls[stage], 1)
+        print(f"  stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
+              f"{timer.seconds[stage] * 1e3 / n:.3f} ms per call over {timer.calls[stage]} calls")
+    print(f"trace ({card}), train steps 1-{fig['steps']} of epoch 0, {fig['wall_ms']:.3f} ms: "
+          f"device busy {fig['busy_ms']:.3f} ms, idle share {fig['idle_share']:.4f}; train step "
+          f"(mean of {fig['n_step']}): wall {fig['step_wall_ms']:.3f} ms, host until its "
+          f"synchronize {fig['step_host_ms']:.3f} ms, device busy {fig['step_device_ms']:.3f} ms; "
+          f"prepare_raster host {fig['prep_ms']:.3f} ms a call ({fig['n_prep']} calls) against "
+          f"raster_uv_kernel {fig['uv_ms']:.4f} ms a launch ({fig['n_uv']} launches)", flush=True)
+    return launches
 
 
 def main():
@@ -629,8 +817,11 @@ def main():
     line = checkpoint_resume(ckpt_cfg, init, "cuda")
     print(f"checkpoint/resume ({card}): {line}; launches {read_counts()}", flush=True)
 
+    # ---- 8. the released entry point at full width ----
+    launches8 = released_entry_point(card, read_counts, zero_counts)
+
     rows = []
-    for name, src_line, counts in (("raster_uv", 222, launches), ("raster_rgb", 201, launches),
+    for name, src_line, counts in (("raster_uv", 222, launches8), ("raster_rgb", 201, launches8),
                                    ("raster_rgb_binned", 272, launches6)):
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": "artiboost_torch/csrc/raster.cu",

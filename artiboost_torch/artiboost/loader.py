@@ -39,7 +39,7 @@ from artiboost_torch.artiboost.scrambler import Scrambler
 from artiboost_torch.artiboost.synth_batch import SynthBatch, SynthConfig
 from artiboost_torch.artiboost.view_engine import ViewEngineConfig, persp_rotmat_centers
 from artiboost_torch.mano.model import ManoModel, get_mano_model
-from artiboost_torch.metrics.val_metric import ValMetricMean3DEPE2
+from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
 from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.misc import logger, resolve_device
 
@@ -313,12 +313,14 @@ class ArtiBoostLoader:
 
     # ---- mining ----
     def step_eval(self, epoch_idx: int, evaluator) -> None:
-        """Collect the per-triplet val maps from the evaluator and reweight."""
+        """Average the per-triplet maps of the evaluator's ValMetrics (the
+        EPE's and the MSSD's), AND their seen masks, and reweight
+        (``artiboost_tpu/artiboost/loader.py:473-489``)."""
         self.epoch_idx = epoch_idx
         if not self.use_synth:
             return
         maps = [m.get_averaged_maps() for m in evaluator.metrics_list
-                if isinstance(m, ValMetricMean3DEPE2)]
+                if isinstance(m, (ValMetricMean3DEPE2, ValMetricAR2))]
         if not maps:
             logger.warning("no ValMetric found; skipping ArtiBoost reweight")
             return

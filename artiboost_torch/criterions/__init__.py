@@ -3,11 +3,16 @@ from __future__ import annotations
 
 from typing import Dict
 
+from artiboost_torch.criterions.alignloss import AlignLoss
+from artiboost_torch.criterions.chamferloss import ChamferLoss
 from artiboost_torch.criterions.criterion import Criterion, TensorLoss
+from artiboost_torch.criterions.honetloss import ManoLoss, ObjLoss
 from artiboost_torch.criterions.jointloss import HandJointsLoss, JointsLoss
 from artiboost_torch.criterions.ordinal import HandOrdLoss, SceneOrdLoss
+from artiboost_torch.criterions.symcornerloss import SymCornerLoss
 
-LOSSES = {cls.__name__: cls for cls in (JointsLoss, HandJointsLoss, HandOrdLoss, SceneOrdLoss)}
+LOSSES = {cls.__name__: cls for cls in (JointsLoss, HandJointsLoss, HandOrdLoss, SceneOrdLoss,
+                                        ManoLoss, ObjLoss, SymCornerLoss, AlignLoss, ChamferLoss)}
 
 
 def build_criterion(cfg: Dict) -> Criterion:

@@ -33,6 +33,17 @@ def _shaped(model: ManoModel, betas: torch.Tensor) -> torch.Tensor:
     return model.v_template[None] + torch.einsum("vds,bs->bvd", model.shapedirs, betas)
 
 
+def pca_to_axisang(model: ManoModel, pose_coeffs: torch.Tensor, ncomps: int,
+                   flat_hand_mean: bool = True) -> torch.Tensor:
+    """(B, 3 + ncomps) PCA pose -> (B, 48) full axis-angle pose: the global
+    rotation, then the coefficients times the first ``ncomps`` rows of
+    ``hands_components``, plus ``hands_mean`` unless ``flat_hand_mean``."""
+    hand = pose_coeffs[:, 3:3 + ncomps] @ model.hands_components[:ncomps]
+    if not flat_hand_mean:
+        hand = hand + model.hands_mean
+    return torch.cat([pose_coeffs[:, :3], hand], dim=1)
+
+
 def mano_forward(model: ManoModel, full_pose: torch.Tensor, betas: torch.Tensor,
                  center_idx: Optional[int] = None) -> ManoOutput:
     """(B, 48) axis-angle pose + (B, 10) shape -> verts, 21 joints, transforms."""

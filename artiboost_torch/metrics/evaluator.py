@@ -7,6 +7,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 from artiboost_torch.datasets.hoquery import Queries
+from artiboost_torch.metrics.bop_ar import AR
 from artiboost_torch.metrics.lossesmetric import LossesMetric
 from artiboost_torch.metrics.meanepe import Mean2DEPE, Mean3DEPE
 from artiboost_torch.metrics.pckmetric import (
@@ -15,13 +16,13 @@ from artiboost_torch.metrics.pckmetric import (
     Obj2DPCKMetric,
     Obj3DPCKMetric,
 )
-from artiboost_torch.metrics.val_metric import ValMetricMean3DEPE2
+from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
 from artiboost_torch.metrics.vismetric import Vis2DMetric, VisHand2DMetric, VisMetric
 from artiboost_torch.utils.misc import logger, resolve_device
 
 METRICS = {m.__name__: m for m in (
     LossesMetric, Mean3DEPE, Mean2DEPE, ValMetricMean3DEPE2, Hand3DPCKMetric, Obj3DPCKMetric,
-    Hand2DPCKMetric, Obj2DPCKMetric, Vis2DMetric, VisHand2DMetric)}
+    Hand2DPCKMetric, Obj2DPCKMetric, Vis2DMetric, VisHand2DMetric, AR, ValMetricAR2)}
 
 
 class Evaluator:

@@ -11,9 +11,13 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch import nn
 
+from artiboost_torch.models.honet import build_honet
+from artiboost_torch.models.hpregnet import build_hopregnet
 from artiboost_torch.models.hybrid_baseline import build_hybrid_baseline
+from artiboost_torch.models.simple_baseline import build_simple_baseline
 
-MODELS = {"HybridBaseline": build_hybrid_baseline}
+MODELS = {"HybridBaseline": build_hybrid_baseline, "HOPRegNet": build_hopregnet,
+          "HoNet": build_honet, "SimpleBaseline": build_simple_baseline}
 
 
 class Arch(nn.Module):

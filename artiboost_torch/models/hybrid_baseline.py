@@ -18,7 +18,7 @@ from torch import nn
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.models.integral_head import IntegralDeconvHead
 from artiboost_torch.models.mlp import MLP
-from artiboost_torch.models.resnet import build_resnet
+from artiboost_torch.models.resnet import build_backbone
 from artiboost_torch.utils.misc import CONST, resolve_dtype
 from artiboost_torch.utils.transform import batch_uvd2xyz, rot6d_to_rotmat
 
@@ -66,20 +66,24 @@ class HybridBaseline(nn.Module):
         }
 
 
-def build_hybrid_baseline(cfg: Dict, data_preset: Dict) -> HybridBaseline:
-    def dtype(sub: Dict) -> torch.dtype:
-        return resolve_dtype(sub.get("DTYPE", cfg.get("DTYPE")))
-
-    backbone = build_resnet(cfg["BACKBONE"], dtype(cfg["BACKBONE"]))
-    h = cfg["HYBRID_HEAD"]
-    head = IntegralDeconvHead(
-        in_channels=h.get("INPUT_CHANNEL", backbone.out_channels),
+def build_integral_head(h: Dict, in_channels: int, dtype: torch.dtype) -> IntegralDeconvHead:
+    """An ``IntegralDeconvHead`` HEAD entry (``integral_head.py:104-116``)."""
+    return IntegralDeconvHead(
+        in_channels=h.get("INPUT_CHANNEL", in_channels),
         nclasses=h.get("NCLASSES", 22), depth_res=h.get("DEPTH_RESOLUTION", 28),
         norm_type=h.get("NORM_TYPE", "softmax"),
         deconv_filters=tuple(h.get("NUM_DECONV_FILTERS", (256, 256))),
         deconv_kernels=tuple(h.get("NUM_DECONV_KERNELS", (4, 4))),
         deconv_with_bias=h.get("DECONV_WITH_BIAS", False),
-        final_conv_kernel=h.get("FINAL_CONV_KERNEL", 1), dtype=dtype(h))
+        final_conv_kernel=h.get("FINAL_CONV_KERNEL", 1), dtype=dtype)
+
+
+def build_hybrid_baseline(cfg: Dict, data_preset: Dict) -> HybridBaseline:
+    def dtype(sub: Dict) -> torch.dtype:
+        return resolve_dtype(sub.get("DTYPE", cfg.get("DTYPE")))
+
+    backbone = build_backbone(cfg)
+    head = build_integral_head(cfg["HYBRID_HEAD"], backbone.out_channels, dtype(cfg["HYBRID_HEAD"]))
     b = cfg["BOX_HEAD"]
     box = MLP(layers_n=tuple(b.get("LAYERS_N", (512, 256, 128))),
               out_channel=b.get("OUT_CHANNEL", 6), dtype=dtype(b))

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from artiboost_torch.models.layers import BatchNorm2d, Conv2d
+from artiboost_torch.utils.misc import resolve_dtype
 
 
 class BasicBlock(nn.Module):
@@ -99,3 +100,10 @@ RESNETS = {
 def build_resnet(cfg: Dict, dtype: torch.dtype = torch.float32) -> ResNet:
     block, sizes = RESNETS[cfg["TYPE"]]
     return ResNet(block, sizes, dtype)
+
+
+def build_backbone(arch_cfg: Dict) -> ResNet:
+    """An ARCH entry's BACKBONE in ``ARCH.DTYPE`` (the backbone's own DTYPE
+    wins, as the JAX package's build functions merge them)."""
+    bb = arch_cfg["BACKBONE"]
+    return build_resnet(bb, resolve_dtype(bb.get("DTYPE", arch_cfg.get("DTYPE"))))

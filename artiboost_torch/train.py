@@ -182,9 +182,11 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
         summarizer: Optional[Summarizer] = None, test_freq: int = 5, evaluate: bool = False,
         profile: Optional[Tuple[str, int]] = None) -> Dict:
     """Train for ``epochs`` (default TRAIN.EPOCH). ``device`` None means
-    CUDA (raises without one). ``model_state`` is a HybridBaseline state
-    dict (e.g. from ``hybrid_baseline_from_flax``); without it the weights
-    are torch's initialisation under TRAIN.MANUAL_SEED. ``draws`` replaces
+    CUDA (raises without one). ``model_state`` is the state dict of the
+    ARCH's model, any of HybridBaseline, HOPRegNet, HoNet and
+    SimpleBaseline (e.g. from ``utils.convert.FROM_FLAX[ARCH.TYPE]``);
+    without it the weights are torch's initialisation under
+    TRAIN.MANUAL_SEED. ``draws`` replaces
     the loader's random draws. ``recorder`` records the run and its
     checkpoints (``snapshot``: numbered every that many epochs);
     ``resume`` continues from the recorder's latest checkpoint.

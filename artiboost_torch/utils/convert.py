@@ -1,4 +1,4 @@
-"""Flax variables <-> torch state dict for HybridBaseline.
+"""Flax variables <-> torch state dicts of the models.
 
 ``hybrid_baseline_from_flax`` is the inverse of
 ``artiboost_tpu/utils/torch_convert.py``: convs HWIO -> OIHW, the
@@ -8,6 +8,9 @@ plus batch_stats mean/var. ``hybrid_baseline_to_flax`` maps torch names
 and layouts back, for any subset of the state dict (parameters,
 gradients, running statistics), so tests can hold the port's updated
 weights, gradients and statistics against the flax trees.
+``hopregnet_from_flax``, ``honet_from_flax`` and
+``simple_baseline_from_flax`` do the same for the other three model
+families (``FROM_FLAX`` maps an ``ARCH.TYPE`` to its converter);
 ``refinenet_from_flax`` loads the grasp refiner's flax params."""
 from __future__ import annotations
 
@@ -57,6 +60,19 @@ def _resnet(sd: Dict, params: Dict, stats: Dict, prefix: str = "backbone."):
                 stats[scope][f"BatchNorm_{n_main}"])
 
 
+def _integral_head(sd: Dict, head: Dict, head_s: Dict, prefix: str):
+    n_deconv = sum(1 for k in head if k.startswith("ConvTranspose_"))
+    for i in range(n_deconv):
+        ct = head[f"ConvTranspose_{i}"]
+        sd[f"{prefix}.deconv_layers.{3 * i}.weight"] = deconv_weight(ct["kernel"])
+        if "bias" in ct:
+            sd[f"{prefix}.deconv_layers.{3 * i}.bias"] = torch.from_numpy(np.asarray(ct["bias"]).copy())
+        _bn(sd, f"{prefix}.deconv_layers.{3 * i + 1}", head[f"BatchNorm_{i}"],
+            head_s[f"BatchNorm_{i}"])
+    sd[f"{prefix}.final_layer.weight"] = conv_weight(head["Conv_0"]["kernel"])
+    sd[f"{prefix}.final_layer.bias"] = torch.from_numpy(np.asarray(head["Conv_0"]["bias"]).copy())
+
+
 def hybrid_baseline_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """{"params": {backbone, hybrid_head, box_head}, "batch_stats": {...}}
     (numpy leaves, HybridBaseline level) -> state dict of
@@ -64,18 +80,7 @@ def hybrid_baseline_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
     _resnet(sd, params["backbone"], stats["backbone"])
-
-    head, head_s = params["hybrid_head"], stats["hybrid_head"]
-    n_deconv = sum(1 for k in head if k.startswith("ConvTranspose_"))
-    for i in range(n_deconv):
-        ct = head[f"ConvTranspose_{i}"]
-        sd[f"hybrid_head.deconv_layers.{3 * i}.weight"] = deconv_weight(ct["kernel"])
-        if "bias" in ct:
-            sd[f"hybrid_head.deconv_layers.{3 * i}.bias"] = torch.from_numpy(np.asarray(ct["bias"]).copy())
-        _bn(sd, f"hybrid_head.deconv_layers.{3 * i + 1}", head[f"BatchNorm_{i}"],
-            head_s[f"BatchNorm_{i}"])
-    sd["hybrid_head.final_layer.weight"] = conv_weight(head["Conv_0"]["kernel"])
-    sd["hybrid_head.final_layer.bias"] = torch.from_numpy(np.asarray(head["Conv_0"]["bias"]).copy())
+    _integral_head(sd, params["hybrid_head"], stats["hybrid_head"], "hybrid_head")
 
     box = params["box_head"]
     for i in range(sum(1 for k in box if k.startswith("Dense_"))):
@@ -90,6 +95,59 @@ def _dense(sd: Dict, prefix: str, p: Dict):
     """flax Dense kernel (in, out) -> nn.Linear weight (out, in)."""
     sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(p["kernel"]).T))
     sd[prefix + ".bias"] = torch.from_numpy(np.asarray(p["bias"]).copy())
+
+
+def simple_baseline_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """SimpleBaseline's flax variables ({backbone, pose_head}) -> the state
+    dict of ``artiboost_torch.models.simple_baseline.SimpleBaseline``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _resnet(sd, params["backbone"], stats["backbone"])
+    _integral_head(sd, params["pose_head"], stats["pose_head"], "pose_head")
+    return sd
+
+
+def _mano_branch(sd: Dict, p: Dict):
+    """ManoBranch's Dense_0-1 (the MLP), Dense_2 (pose) and Dense_3 (shape,
+    absent without USE_SHAPE)."""
+    for i, name in enumerate(("fc1", "fc2", "pose", "shape")):
+        if f"Dense_{i}" in p:
+            _dense(sd, f"mano_branch.{name}", p[f"Dense_{i}"])
+
+
+def _trans_head(sd: Dict, p: Dict, prefix: str):
+    _dense(sd, f"{prefix}.fc1", p["Dense_0"])
+    _dense(sd, f"{prefix}.fc2", p["Dense_1"])
+
+
+def hopregnet_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """HOPRegNet's flax variables ({backbone, mano_branch, obj_transfhead})
+    -> the state dict of ``artiboost_torch.models.hpregnet.HOPRegNet``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _resnet(sd, params["backbone"], stats["backbone"])
+    _mano_branch(sd, params["mano_branch"])
+    _trans_head(sd, params["obj_transfhead"], "obj_transfhead")
+    return sd
+
+
+def honet_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """HoNet's flax variables ({backbone, mano_branch, mano_transhead,
+    obj_transhead[, adaptor]}) -> the state dict of
+    ``artiboost_torch.models.honet.HoNet``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _resnet(sd, params["backbone"], stats["backbone"])
+    _mano_branch(sd, params["mano_branch"])
+    _trans_head(sd, params["mano_transhead"], "mano_transhead")
+    _trans_head(sd, params["obj_transhead"], "obj_transhead")
+    if "adaptor" in params:
+        sd["adaptor.regressor"] = torch.from_numpy(np.asarray(params["adaptor"]["regressor"]).copy())
+    return sd
+
+
+FROM_FLAX = {"HybridBaseline": hybrid_baseline_from_flax, "HOPRegNet": hopregnet_from_flax,
+             "HoNet": honet_from_flax, "SimpleBaseline": simple_baseline_from_flax}
 
 
 def _layer_norm(sd: Dict, prefix: str, p: Dict):

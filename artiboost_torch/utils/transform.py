@@ -90,6 +90,18 @@ def rotmat_to_aa(rot: torch.Tensor) -> torch.Tensor:
     return quat_to_aa(rotmat_to_quat(rot))
 
 
+def rotmat_proj(m: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3, 3) onto SO(3): the nearest rotation u @ vt by SVD,
+    with u's last column negated where det(u @ vt) < 0 (manotorch
+    ``batch_rotprojs``). The signs of u and vt are the solver's own; their
+    product is not."""
+    u, _, vt = torch.linalg.svd(m)
+    det = torch.linalg.det(u @ vt)
+    sign = torch.where(det < 0, -1.0, 1.0).to(u.dtype)
+    u = torch.cat([u[..., :2], u[..., 2:] * sign[..., None, None]], dim=-1)
+    return u @ vt
+
+
 def rot6d_to_rotmat(d6: torch.Tensor) -> torch.Tensor:
     """Ortho-6D (..., 6) -> rotation matrix via Gram-Schmidt; columns are
     (x, y, z) with x = normalize(a), z = normalize(x x b), y = z x x."""

@@ -59,11 +59,29 @@ Phases, each fatal on failure:
      square), the TensorBoard tags, the trace and the launches (13 rgb for
      the TEST init, uv for every train step and val batch, no binned), and
      prints from the trace the device idle share, the train step's host and
-     device time and ``prepare_raster``'s host time against B1's.
-Every launch counter is zeroed just before phases 4, 5, 6, 7 and 8 and
-read just after each. TF32 is off. The lines before the last: the kernel
-table as one JSON object (B1 and B2 launches from phase 8, B3 launches from
-phase 6) and the card's name and power limit; the last line: the ok JSON.
+     device time and ``prepare_raster``'s host time against B1's;
+  9. the Reg recipe at full width: ``artiboost_torch.train.main`` on
+     config/ho3dv2_regbased_artiboost.yaml (HOPRegNet: ResNet34 in
+     bfloat16, 224x224, batch 128, ManoBranch with 15 PCA components,
+     ManoLoss; CCV 4 x 288 x 50, the hand_obj refiner) with DATASET.TRAIN
+     left as HO3D (absent: synth-only, CONFIG_LEN_TRAIN 512, 4 steps of 128),
+     VAL_LEN 128, EVAL_FREQ 1, VAL_START_EPOCH 0, 2 epochs, DATASET.TEST a
+     SyntheticHO split of 128 images (RAW_SIZE 512) and ``--test_freq 2``:
+     10 uv, 8 rgb and 0 binned launches, finite MANO terms, ManoBranch and
+     the object head moved, the weight map changed inside [0.1, 10], PCK
+     ``auc_all`` in [0, 1];
+ 10. the symmetric DexYCB recipe (config/dexycb_clasbased_sym_artiboost.yaml:
+     HybridBaseline, CCV 7 x 288 x 50, CENTER_IDX 9, SymCornerLoss, AR and
+     ValMetricAR2) at phase 9's depth: the same launches, a finite
+     ``sym_corners_3d_loss`` and ``val_mssd_mean``, each ``step_eval``
+     moving weights only where both the EPE and the MSSD maps saw a
+     triplet, the TEST pass's AR recalls in [0, 1], and the line saying
+     that MODEL_INFO_PATH is absent and the symmetries are identity.
+Every launch counter is zeroed just before phases 4 to 10 and read just
+after each. TF32 is off. The lines before the last: the kernel table as one
+JSON object (B1 and B2 launches from phases 8, 9 and 10, summed and by
+phase, B3 launches from phase 6) and the card's name and power limit; the
+last line: the ok JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
 """
@@ -506,6 +524,155 @@ def released_entry_point(card: str, read_counts, zero_counts) -> dict:
     return launches
 
 
+def other_recipe(phase: int, recipe: str, card: str, read_counts, zero_counts) -> dict:
+    """Phases 9 and 10: ``artiboost_torch.train.main`` on a released recipe
+    at full width, DATASET.TRAIN left as the recipe's (absent: synth-only),
+    CONFIG_LEN_TRAIN 512 (4 steps of 128), VAL_LEN 128, EVAL_FREQ 1,
+    VAL_START_EPOCH 0, 2 epochs, DATASET.TEST a SyntheticHO split of 128
+    images and ``--test_freq 2``. Phase 9 (the Reg recipe) checks the MANO
+    terms and that ManoBranch and the object head moved; phase 10 (the
+    symmetric DexYCB recipe) the symmetric corner loss, the MSSD map, the
+    mining from the averaged EPE and MSSD maps and the TEST pass's AR.
+    Everything it writes is removed. -> the launches of the run."""
+    import logging
+
+    import torch
+    import yaml
+
+    from artiboost_torch import train
+    from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
+    from artiboost_torch.models.arch import build_arch
+    from artiboost_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "config", f"{recipe}.yaml"))
+    cfg["DATASET"]["TEST"] = {"TYPE": "SyntheticHO", "DATA_SPLIT": "test", "AUG": False,
+                              "RAW_SIZE": 512, "N_SAMPLES": 128}
+    cfg["MANAGER"].update(CONFIG_LEN_TRAIN=512, VAL_LEN=128)
+    cfg["TRAIN"].update(EVAL_FREQ=1, VAL_START_EPOCH=0)
+    with torch.random.fork_rng(devices=[]):  # the initialisation run() makes
+        torch.manual_seed(int(cfg["TRAIN"]["MANUAL_SEED"]))
+        init = build_arch(cfg["ARCH"], cfg["DATA_PRESET"]).model_list[0].state_dict()
+    init = {k: v.clone() for k, v in init.items()}
+    mining, warnings = [], []
+
+    class Loader(train.ArtiBoostLoader):
+        def step_eval(self, epoch_idx, evaluator):
+            maps = {type(m).__name__: m.get_averaged_maps() for m in evaluator.metrics_list
+                    if isinstance(m, (ValMetricMean3DEPE2, ValMetricAR2))}
+            before = self.ccv.sample_weight_map.clone()
+            super().step_eval(epoch_idx, evaluator)
+            mining.append((maps, before, self.ccv.sample_weight_map.clone()))
+
+    class Warnings(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    handler = Warnings(logging.WARNING)
+    logging.getLogger("artiboost_torch").addHandler(handler)
+    orig_loader, train.ArtiBoostLoader = train.ArtiBoostLoader, Loader
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{recipe}_")
+    dump = None
+    try:
+        cfg_path = os.path.join(tmp, f"{recipe}.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = train.main(["--cfg", cfg_path, "--exp_id", f"smoke{phase}", "--epochs", "2",
+                          "--test_freq", "2"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        dump = out["dump_path"]
+        hist, loader = out["history"], out["loader"]
+        check(out["train_data"] is None and loader._mixed_counts() == (0, 128)
+              and len(loader) == 4, f"phase {phase}: {recipe} did not train synth-only, "
+              "4 steps of 128")
+        steps = sum(r["train"]["steps"] for r in hist)
+        val_batches = sum(r.get("val", {}).get("batches", 0) for r in hist)
+        tests = [r["test"] for r in hist if "test" in r]
+        check(steps == 8 and val_batches == 2 and len(tests) == 1 and "test" in hist[1]
+              and tests[0]["batches"] == 1 and tests[0]["images"] == 128,
+              f"phase {phase}: ran {steps} train steps, {val_batches} val batches, test passes "
+              f"{[(t['batches'], t['images']) for t in tests]}")
+        check(launches == {"raster_uv": 10, "raster_rgb": 8, "raster_rgb_binned": 0},
+              f"phase {phase} launches {launches}, expected 10 uv, 8 rgb, 0 binned")
+        losses = [v for r in hist for v in r["train"]["final_loss"]]
+        check(all(math.isfinite(v) for v in losses), f"phase {phase}: non-finite loss {losses}")
+        terms = (("mano_shape", "mano_pca_pose") if phase == 9 else ("sym_corners_3d_loss",))
+        for r in hist:
+            for part in ("train", "val"):
+                lm = r[part]["measures"]["LossesMetric"]
+                check(all(math.isfinite(lm.get(t, math.nan)) for t in terms + ("final_loss",)),
+                      f"phase {phase} epoch {r['epoch']} {part}: losses {lm}")
+        check(len(mining) == 2, f"phase {phase}: step_eval ran {len(mining)} times")
+        w = loader.ccv.sample_weight_map
+        check(not bool(torch.all(w == 1.0)) and float(w.min()) >= 0.1 and float(w.max()) <= 10.0,
+              f"phase {phase}: weight map [{float(w.min())}, {float(w.max())}]")
+        model = out["model"].model_list[0]
+        final = model.state_dict()
+        heads = ("mano_branch.", "obj_transfhead.") if phase == 9 else ("box_head.",)
+        names = [n for n, p in model.named_parameters() if n.startswith(heads)]
+        still = [n for n in names if torch.equal(final[n].cpu(), init[n])]
+        check(names and not still, f"phase {phase}: unchanged after training: {still}")
+        evals = os.path.join(dump, "evaluations")
+        with open(os.path.join(evals, "test_epoch_1.json")) as f:
+            test_m = json.load(f)
+        if phase == 9:
+            for split, e in (("train", 0), ("train", 1), ("val", 0), ("val", 1), ("test", 1)):
+                with open(os.path.join(evals, f"{split}_epoch_{e}.json")) as f:
+                    m = json.load(f)
+                for name in ("Hand3DPCKMetric", "Obj3DPCKMetric"):
+                    auc = m[name]["auc_all"]
+                    check(math.isfinite(auc) and 0 <= auc <= 1,
+                          f"phase 9 {split} epoch {e} {name} auc {auc}")
+            detail = (f"PCK auc_all in test: hand {test_m['Hand3DPCKMetric']['auc_all']:.4f}, "
+                      f"object {test_m['Obj3DPCKMetric']['auc_all']:.4f}")
+        else:
+            for r in hist:
+                v = r["val"]["measures"]["ValMetricAR2"]["val_mssd_mean"]
+                check(math.isfinite(v), f"phase 10 epoch {r['epoch']}: val_mssd_mean {v}")
+            for maps, before, after in mining:
+                (epe, seen_e), (mssd, seen_m) = maps["ValMetricMean3DEPE2"], maps["ValMetricAR2"]
+                both = seen_e & seen_m
+                moved = after != before
+                check(int(both.sum()) > 0 and bool(moved[both].any())
+                      and not bool(moved[~both].any()),
+                      f"phase 10: the reweight moved {int(moved.sum())} weights, "
+                      f"{int(moved[~both].sum())} outside the {int(both.sum())} triplets both "
+                      "maps saw")
+            ar = test_m["AR"]
+            check(all(0 <= ar[k] <= 1 for k in ("AR_MSSD", "AR_MSPD", "AR_BOP2"))
+                  and math.isfinite(ar["MSSD"]), f"phase 10 TEST AR {ar}")
+            absent = [m for m in warnings if m.startswith("MODEL_INFO_PATH")]
+            check(bool(absent), "phase 10: no line says MODEL_INFO_PATH is absent")
+            print(f"phase 10: {absent[0]}", flush=True)
+            detail = (f"TEST AR_MSSD {ar['AR_MSSD']:.4f}, AR_MSPD {ar['AR_MSPD']:.4f}, MSSD "
+                      f"{ar['MSSD']:.2f} mm; val_mssd_mean "
+                      f"{hist[1]['val']['measures']['ValMetricAR2']['val_mssd_mean']:.2f} mm; "
+                      f"mining from {int(both.sum())} triplets both maps saw")
+        rate = hist[1]["train"]["images"] / hist[1]["train"]["seconds"]
+        timer = out["timer"]
+        del out, loader, model, final
+    finally:
+        train.ArtiBoostLoader = orig_loader
+        logging.getLogger("artiboost_torch").removeHandler(handler)
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dump:
+            shutil.rmtree(dump, ignore_errors=True)
+    print(f"phase {phase}, {recipe} ({card}): synth-only, 2 epochs in {wall:.2f} s: {steps} "
+          f"steps of 128, {val_batches} val batches, one TEST pass of 128 SyntheticHO images; "
+          f"launches {launches}; train {rate:.2f} img/s in epoch 1; final_loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; weights [{float(w.min()):.4f}, "
+          f"{float(w.max()):.4f}]; {detail}", flush=True)
+    for stage in ("dataset init", "pose sweep", "synth batch", "train step", "forward",
+                  "metric+mining", "test pass"):
+        n = max(timer.calls[stage], 1)
+        print(f"  stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
+              f"{timer.seconds[stage] * 1e3 / n:.3f} ms per call over {timer.calls[stage]} calls")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -820,13 +987,22 @@ def main():
     # ---- 8. the released entry point at full width ----
     launches8 = released_entry_point(card, read_counts, zero_counts)
 
+    # ---- 9 and 10. the other two released recipes at full width ----
+    launches9 = other_recipe(9, "ho3dv2_regbased_artiboost", card, read_counts, zero_counts)
+    launches10 = other_recipe(10, "dexycb_clasbased_sym_artiboost", card, read_counts,
+                              zero_counts)
+
     rows = []
-    for name, src_line, counts in (("raster_uv", 222, launches8), ("raster_rgb", 201, launches8),
-                                   ("raster_rgb_binned", 272, launches6)):
+    main_path = {"8": launches8, "9": launches9, "10": launches10}
+    for name, src_line, phases in (("raster_uv", 222, main_path),
+                                   ("raster_rgb", 201, main_path),
+                                   ("raster_rgb_binned", 272, {"6": launches6})):
         k = kernels[name]
+        by_phase = {p: counts[name] for p, counts in phases.items()}
         rows.append({"name": name, "route": "cuda", "source": "artiboost_torch/csrc/raster.cu",
                      "replaces": f"artiboost_tpu/ops/rasterizer_pallas.py:{src_line}",
-                     "launches": counts[name], "max_abs_err": k["max_abs_err"],
+                     "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+                     "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))

@@ -119,6 +119,56 @@ def test_released_config_trains_synth_only(tmp_path, caplog):
     assert not glob.glob(str(evals / "test_*"))
 
 
+RECIPES = {"reg": REPO / "config" / "ho3dv2_regbased_artiboost.yaml",
+           "dexycb_sym": REPO / "config" / "dexycb_clasbased_sym_artiboost.yaml"}
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_other_released_recipes_train_synth_only(recipe, tmp_path, caplog):
+    """The Reg recipe (HOPRegNet, ManoLoss) and the symmetric DexYCB recipe
+    (SymCornerLoss, AR, ValMetricAR2) with no ./data: synth-only, no TEST
+    passes, every loss and metric built. The DexYCB recipe's absent
+    MODEL_INFO_PATH degrades to identity symmetries with a warning, and it
+    writes AR and ``val_mssd_mean`` into its evaluation JSON and its
+    TensorBoard tags."""
+    path = RECIPES[recipe]
+    cfg = load_config(str(path))
+    with caplog.at_level("WARNING", logger="artiboost_torch"):
+        out = _in_dir(tmp_path, lambda: train.main([
+            "--cfg", str(path), "--device", "cpu", "--epochs", "1", "--batch_size", "2"]))
+    msgs = [r.message for r in caplog.records]
+    data = cfg["DATASET"]["TRAIN"]["TYPE"]
+    assert any(m.startswith(f"train dataset unavailable ({data} data not found under ")
+               and m.endswith("); synth-only training") for m in msgs), msgs
+    assert any(m.startswith(f"test dataset unavailable ({data} data not found under ")
+               and m.endswith("); skipping test passes") for m in msgs), msgs
+    assert not [m for m in msgs if m.startswith("metric ")], msgs  # every metric is built
+    absent_info = [m for m in msgs if m.startswith("MODEL_INFO_PATH")]
+    assert bool(absent_info) == (recipe == "dexycb_sym")
+    assert out["train_data"] is None and out["test_data"] is None
+    (record,) = out["history"]
+    assert record["train"]["steps"] == 1 and "test" not in record
+    assert np.isfinite(record["train"]["final_loss"]).all()
+    assert type(out["model"].model_list[0]).__name__ == cfg["ARCH"]["TYPE"]
+    assert [type(m).__name__ for m in out["evaluator"].metrics_list] == \
+        [m["TYPE"] for m in cfg["EVALUATOR"]]
+    assert [type(m).__name__ for m in out["step"].criterion.loss_list] == \
+        [c["TYPE"] for c in cfg["CRITERION"]]
+    dump = tmp_path / out["dump_path"]
+    with open(dump / "evaluations" / "train_epoch_0.json") as f:
+        measures = json.load(f)
+    assert set(measures) == {m["TYPE"] for m in cfg["EVALUATOR"]} - {"Vis2DMetric"}
+    tags = {t for t, _ in read_scalars(dump / "runs")}
+    if recipe == "dexycb_sym":
+        assert 0.0 <= measures["AR"]["AR_MSSD"] <= 1.0 and measures["AR"]["MSSD"] > 0
+        assert np.isfinite(measures["ValMetricAR2"]["val_mssd_mean"])
+        assert measures["LossesMetric"]["sym_corners_3d_loss"] > 0
+        assert {"train/AR/AR_MSSD", "train/AR/MSSD", "train/ValMetricAR2/val_mssd_mean"} <= tags
+    else:
+        assert {"mano_shape", "mano_pca_pose"} <= set(measures["LossesMetric"])
+        assert "train/LossesMetric/mano_pca_pose" in tags
+
+
 REAL_TYPES = [("HO3D", {"DATA_SPLIT": "train", "SPLIT_MODE": "paper"}),
               ("HO3D", {"DATA_SPLIT": "test", "SPLIT_MODE": "paper"}),
               ("HO3DV3", {"DATA_SPLIT": "train", "SPLIT_MODE": "paper"}),

@@ -31,13 +31,14 @@ CFG_PATH = "config/synthetic_smoke.yaml"
 EPOCHS = 2
 
 
-def gate_config(cache_dir):
-    """config/synthetic_smoke.yaml as it stands; only the blacklist cache
-    moves to the test's directory."""
+def gate_config(cache_dir, cfg_path=CFG_PATH, train_cfg=None):
+    """The config as it stands; only the blacklist cache moves to the
+    test's directory, and ``train_cfg`` (a dict) overrides TRAIN's keys."""
     from artiboost_torch.utils.config import load_config
 
-    cfg = load_config(CFG_PATH)
+    cfg = load_config(cfg_path)
     cfg["MANAGER"]["CACHE_DIR"] = str(cache_dir)
+    cfg["TRAIN"].update(train_cfg or {})
     return cfg
 
 
@@ -57,10 +58,12 @@ def split_dataset(base, cfg, split):
                                          **{k: v for k, v in node.items() if k != "TYPE"})
 
 
-def _jax_gate(path_out, cache_dir):
+def _jax_gate(path_out, cache_dir, cfg_path=CFG_PATH, epochs=EPOCHS, train_cfg=None,
+              synth_batches=False):
     """Subprocess body: the loop of train_artiboost.py:342-378 on the
     config, every draw recorded, with the measures of every pass and the
-    mining state after every epoch. The state is initialised from a zero
+    mining state after every epoch; with ``synth_batches`` also every
+    synth batch, train and val, in the order they were made. The state is initialised from a zero
     batch, as in tests/test_torch_train_slice.py."""
     import jax
     import jax.numpy as jnp
@@ -76,12 +79,12 @@ def _jax_gate(path_out, cache_dir):
                                                     make_eval_step, make_mixed_train_step)
     from train.train_artiboost import _ensure_synth_ids, _to_device_batch
 
-    cfg = gate_config(cache_dir)
+    cfg = gate_config(cache_dir, cfg_path, train_cfg)
     preset, bs = cfg["DATA_PRESET"], int(cfg["TRAIN"]["BATCH_SIZE"])
     seed = int(cfg["TRAIN"]["MANUAL_SEED"])
     real, test = split_dataset(HODataset, cfg, "TRAIN"), split_dataset(HODataset, cfg, "TEST")
     loader = ArtiBoostLoader(real_dataset=real, cfg=dict(cfg["MANAGER"], DATA_PRESET=preset),
-                             batch_size=bs, n_epochs=EPOCHS, seed=seed)
+                             batch_size=bs, n_epochs=epochs, seed=seed)
     vcfg, (O, V, G) = loader.view_cfg, loader.ccv.shape
     n_tex, n_bg = loader.assets.hand_color_bank.shape[0], loader.assets.backgrounds.shape[0]
     criterion = build_criterion(cfg)
@@ -105,6 +108,8 @@ def _jax_gate(path_out, cache_dir):
     mixed_step = make_mixed_train_step(arch, criterion, optimizer)
     eval_step = make_eval_step(arch, criterion)
     rec = {"triplets": [], "poses": [], "synth": [], "loss": [], "perm": []}
+    if synth_batches:
+        rec["synth_batch"] = []
 
     def pose_draws(key, n):
         k_view, k_scram = jax.random.split(key)
@@ -135,12 +140,17 @@ def _jax_gate(path_out, cache_dir):
     @jax.jit
     def loss_draws(key):
         out = []
-        for loss, k in zip(criterion.loss_list, jax.random.split(key, 3)):
+        for loss, k in zip(criterion.loss_list, jax.random.split(key, len(criterion.loss_list))):
             d = {}
             if type(loss).__name__ in ("HandOrdLoss", "SceneOrdLoss"):
                 d = jax_ordinal_draws(jax, k, loss)
             out.append(d)
         return {f"{i}/{k}": v for i, d in enumerate(out) for k, v in d.items()}
+
+    def host_batch(batch):
+        """On the host, bf16 as float32 (npz keeps no bf16; the cast back is exact)."""
+        return {k: np.asarray(v.astype(jnp.float32) if v.dtype == jnp.bfloat16 else v)
+                for k, v in batch.items()}
 
     pose_draws = jax.jit(pose_draws, static_argnums=1)
     synth_draws = jax.jit(synth_draws, static_argnums=1)
@@ -179,11 +189,13 @@ def _jax_gate(path_out, cache_dir):
             if batch is None:
                 return
             rec["synth"].append(synth_draws(sub, bs))
+            if synth_batches:
+                rec["synth_batch"].append(host_batch(batch))
             yield batch
 
     key = jax.random.PRNGKey(seed)
     recorded_prepare(False)  # the startup prepare
-    for epoch in range(EPOCHS):
+    for epoch in range(epochs):
         recorded_prepare(False)
         k = loader.key
         for _ in range(2):  # iter_parts' real and synth permutation seeds
@@ -195,6 +207,8 @@ def _jax_gate(path_out, cache_dir):
             key, k_synth, k_loss = jax.random.split(key, 3)
             rec["synth"].append(synth_draws(k_synth, int(sidx.shape[0])))
             synth = loader._synth_batch_jit(k_synth, loader.generated, sidx)
+            if synth_batches:  # copied now: the mixed step donates its inputs
+                rec["synth_batch"].append(host_batch(synth))
             real_dev = {k: jnp.asarray(v) for k, v in real_batch.items()}
             state, preds, losses, batch = mixed_step(state, real_dev, synth, k_loss)
             rec["loss"].append(loss_draws(k_loss))
@@ -225,13 +239,15 @@ def _jax_gate(path_out, cache_dir):
     np.savez(path_out, **out)
 
 
-@pytest.fixture(scope="module")
-def jax_gate(tmp_path_factory):
+def run_jax_gate(tmp_path_factory, script, *args):
+    """``script`` (a gate test file, whose main runs ``_jax_gate`` on its
+    config) in a subprocess, ``args`` after its two paths -> (the recorded
+    JAX run, its directory)."""
     d = tmp_path_factory.mktemp("gate_ref")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, **NO_FMA_ENV,
                PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
-    res = subprocess.run([sys.executable, __file__, str(d / "ref.npz"), str(d / "jax_cache")],
+    res = subprocess.run([sys.executable, script, str(d / "ref.npz"), str(d / "jax_cache"), *args],
                          env=env, capture_output=True, text=True, timeout=1200, cwd=repo)
     assert res.returncode == 0, res.stderr[-4000:]
     with np.load(d / "ref.npz") as z:
@@ -239,17 +255,57 @@ def jax_gate(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def torch_gate(jax_gate):
-    """``run`` on the config with the JAX draws replayed, at one torch
-    thread; the mining state is copied after every epoch's step_eval."""
+def jax_gate(tmp_path_factory):
+    return run_jax_gate(tmp_path_factory, __file__)
+
+
+class ReplaySynthBatches:
+    """The port's synth batch function with every batch it makes replaced,
+    key by key, by the one the JAX run recorded in the same place, so the
+    two runs differ in no input. ``count`` says how many it replaced."""
+
+    def __init__(self, fn, ref):
+        self.fn, self.ref, self.count = fn, ref, 0
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __call__(self, *args):
+        batch = self.fn(*args)
+        prefix = f"synth_batch/{self.count}/"
+        self.count += 1
+        assert {k[len(prefix):] for k in self.ref if k.startswith(prefix)} == set(batch)
+        for k, v in batch.items():
+            want = self.ref[prefix + k]
+            assert want.shape == tuple(v.shape), (k, want.shape, v.shape)
+            batch[k] = torch.from_numpy(want).to(v.dtype)
+        return batch
+
+
+def run_torch_gate(jax_gate, cfg_path=CFG_PATH, epochs=EPOCHS, train_cfg=None,
+                   synth_batches=False):
+    """``run`` on the config with the JAX draws replayed from the flax
+    initialisation, at one torch thread; the mining state is copied after
+    every epoch's step_eval. With ``synth_batches`` every synth batch is
+    the JAX run's (``ReplaySynthBatches``, kept as ``replay.synth_batches``).
+    -> (ref, run's result, states, replay)."""
     from artiboost_torch import train
     from artiboost_torch.metrics.val_metric import ValMetricMean3DEPE2
-    from artiboost_torch.utils.convert import hybrid_baseline_from_flax
+    from artiboost_torch.utils.convert import FROM_FLAX
 
     ref, d = jax_gate
+    cfg = gate_config(d / "torch_cache", cfg_path, train_cfg)
     after = []
 
+    replay = ReplayDraws(ref)
+
     class Loader(train.ArtiBoostLoader):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            if synth_batches:
+                self.synth_batch_fn = replay.synth_batches = ReplaySynthBatches(
+                    self.synth_batch_fn, ref)
+
         def step_eval(self, epoch_idx, evaluator):
             super().step_eval(epoch_idx, evaluator)
             vm = next(m for m in evaluator.metrics_list if isinstance(m, ValMetricMean3DEPE2))
@@ -258,18 +314,22 @@ def torch_gate(jax_gate):
                           "weights": self.ccv.sample_weight_map.clone(),
                           "occurrence": self.ccv.occurrence_map.clone()})
 
-    replay = ReplayDraws(ref)
     n_threads, orig = torch.get_num_threads(), train.ArtiBoostLoader
     torch.set_num_threads(1)
     train.ArtiBoostLoader = Loader
     try:
-        out = train.run(gate_config(d / "torch_cache"), epochs=EPOCHS, device="cpu", draws=replay,
-                        model_state=hybrid_baseline_from_flax(_unflatten(ref, "model/")),
+        out = train.run(cfg, epochs=epochs, device="cpu", draws=replay,
+                        model_state=FROM_FLAX[cfg["ARCH"]["TYPE"]](_unflatten(ref, "model/")),
                         test_freq=1)
     finally:
         train.ArtiBoostLoader = orig
         torch.set_num_threads(n_threads)
     return ref, out, after, replay
+
+
+@pytest.fixture(scope="module")
+def torch_gate(jax_gate):
+    return run_torch_gate(jax_gate)
 
 
 def _bound(name, key):

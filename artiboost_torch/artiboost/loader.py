@@ -42,6 +42,7 @@ from artiboost_torch.mano.model import ManoModel, get_mano_model
 from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
 from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.misc import logger, resolve_device
+from artiboost_torch.utils.prefetch import IN_PLACE
 
 
 class DrawSource:
@@ -99,7 +100,7 @@ class ArtiBoostLoader:
 
         self.mano_model = (mano_model if mano_model is not None
                            else get_mano_model(device=self.device)).to(self.device)
-        self.obj_lib = get_object_library(obj_names, device=self.device)
+        self.obj_lib = get_object_library(obj_names, dataset_type, device=self.device)
         self.grasp_lib = get_grasp_library(obj_names, n_grasp, device=self.device)
 
         n_obj, n_persp = len(obj_names), self.view_cfg.n_persp
@@ -164,7 +165,7 @@ class ArtiBoostLoader:
             image_bf16=bool(rend.get("IMAGE_BF16", True)),
             render_scale=rend.get("RENDER_SCALE"))
         self.assets = default_render_assets(self.mano_model, bgs_path=rend.get("BGS_PATH"),
-                                            html_path=rend.get("HTML_PATH"),
+                                            html_path=rend.get("HTML_PATH", "data/HTML_supp"),
                                             device=self.device)
         self.synth_batch_fn = SynthBatch(self.mano_model, self.obj_lib, self.assets,
                                          self.synth_cfg, device=self.device)
@@ -263,20 +264,14 @@ class ArtiBoostLoader:
         visited once per epoch (slices wrap when the epoch needs more)."""
         return np.random.RandomState(seed).permutation(self.generated.obj_id.shape[0])
 
-    def _sample_synth_idx(self, perm: np.ndarray, b: int, n_synth: int) -> torch.Tensor:
-        start = b * n_synth
-        idx = perm[np.arange(start, start + n_synth) % len(perm)]
-        return torch.as_tensor(idx, dtype=torch.int64, device=self.device)
-
     def __len__(self) -> int:
         synth_len = self.config_len_train if self.use_synth else 0
         return max((self._real_len() + synth_len) // self.batch_size, 1)
 
-    def iter_parts(self) -> Iterator[Tuple[Optional[Dict], Optional[torch.Tensor]]]:
-        """(real batch or None, synth pose indices or None) per step; the
-        synth half is rendered by the caller (``synth_part``), as the JAX
-        package's pipelined step does (loader.py:434-469). Both epoch
-        permutations are drawn when the iterator is made."""
+    def iter_plan(self) -> Iterator[Tuple[Optional[List[int]], Optional[np.ndarray]]]:
+        """(real sample indices or None, synth pose indices or None) per
+        step, host values only, so a producer thread can walk the plan. Both
+        epoch permutations are drawn when the iterator is made."""
         n_real, n_synth = self._mixed_counts()
         real_len = self._real_len()
         real_perm = np.random.RandomState(self.draws.perm_seed()).permutation(max(real_len, 1))
@@ -284,18 +279,38 @@ class ArtiBoostLoader:
         synth_perm = self._synth_epoch_perm(self.draws.perm_seed()) if use_synth else None
         n_batches = len(self)
 
-        def parts():
+        def plan():
             real_ptr = 0
             for b in range(n_batches):
-                real_batch = None
+                real_idx = None
                 if n_real and self.real_dataset is not None:
-                    idx = [int(real_perm[(real_ptr + i) % real_len]) for i in range(n_real)]
+                    real_idx = [int(real_perm[(real_ptr + i) % real_len]) for i in range(n_real)]
                     real_ptr += n_real
-                    real_batch = self.real_dataset.sample_batch(idx)
-                yield real_batch, (self._sample_synth_idx(synth_perm, b, n_synth)
-                                   if use_synth else None)
+                synth_idx = None
+                if use_synth:
+                    start = b * n_synth
+                    synth_idx = synth_perm[np.arange(start, start + n_synth) % len(synth_perm)]
+                yield real_idx, synth_idx
 
-        return parts()
+        return plan()
+
+    def synth_indices(self, synth_idx: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        """A plan's synth pose indices on the device."""
+        if synth_idx is None:
+            return None
+        return torch.as_tensor(synth_idx, dtype=torch.int64, device=self.device)
+
+    def iter_parts(self) -> Iterator[Tuple[Optional[Dict], Optional[torch.Tensor]]]:
+        """(real batch or None, synth pose indices or None) per step, on the
+        calling thread (the host halves of ``iter_plan`` through
+        ``HostPipeline.host_halves``, in place, then their device halves);
+        the synth half is rendered by the caller (``synth_part``), as the
+        JAX package's pipelined step does (loader.py:434-469).
+        ``train.train_epoch`` walks the same plan with the real halves
+        prefetched."""
+        halves = IN_PLACE.host_halves(self.real_dataset, self.iter_plan(), self._mixed_counts()[0])
+        return ((None if hb is None else self.real_dataset.device_half(hb), self.synth_indices(s))
+                for hb, s in halves)
 
     def synth_part(self, sidx: torch.Tensor) -> Dict:
         """Render the synth half of a train batch from the epoch's poses."""

@@ -1,12 +1,13 @@
 """Synthetic scene rendering: hand + object -> training image (counterpart
 of ``artiboost_tpu/artiboost/renderer.py``; reference
 ``anakin/utils/renderer.py``). The parts on the synthesis path: the
-synthetic asset banks, scene composition and render LOD, Lambert shade,
+asset banks (backgrounds and HTML hand textures loaded from disk, or
+synthetic stand-ins), scene composition and render LOD, Lambert shade,
 the per-pixel UV raster and the Gouraud raster (kernels in
 ``ops/rasterizer_cuda.py``), the texel gather, the background composite,
 blur and colour jitter.
 
-Queued: motion blur and the loaders of real background / HTML hand assets."""
+Queued: motion blur."""
 from __future__ import annotations
 
 import os
@@ -15,7 +16,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from artiboost_torch.artiboost.object_library import ObjectLibrary
+from artiboost_torch.artiboost.object_library import ObjectLibrary, _resize_tex
 from artiboost_torch.mano.model import ManoModel
 from artiboost_torch.ops.rasterizer import (
     build_face_incidence,
@@ -25,7 +26,7 @@ from artiboost_torch.ops.rasterizer import (
     vertex_normals_indexed,
 )
 from artiboost_torch.ops.rasterizer_cuda import rasterize_batch_rgb, rasterize_batch_uv
-from artiboost_torch.utils.misc import logger, resolve_device
+from artiboost_torch.utils.misc import resolve_device
 
 
 class RenderAssets(NamedTuple):
@@ -97,22 +98,106 @@ def synthetic_hand_textures(template: np.ndarray, n_tex: int = 8, T: int = 128,
     return torch.from_numpy(uvs), torch.from_numpy(np.stack(texs).astype(np.float32))
 
 
+def load_backgrounds(path: str, size: int = 336, max_n: int = 64) -> Optional[torch.Tensor]:
+    """The first ``max_n`` (sorted) JPEG / PNG files under ``path``, each
+    resized bilinearly to ``size`` x ``size`` -> (n, size, size, 3) in
+    [0, 1], or None when there is none."""
+    import glob
+
+    from PIL import Image
+
+    files = sorted(f for ext in ("*.jpg", "*.jpeg", "*.png")
+                   for f in glob.glob(os.path.join(path, "**", ext), recursive=True))[:max_n]
+    if not files:
+        return None
+    bgs = []
+    for f in files:
+        with Image.open(f) as im:
+            bgs.append(np.asarray(im.convert("RGB").resize((size, size), Image.BILINEAR),
+                                  np.float32) / 255.0)
+    return torch.from_numpy(np.stack(bgs))
+
+
+def load_html_hand_assets(html_root: str, n_verts: int = 778, skip_ids: Tuple[int, ...] = (2,),
+                          tex_size: int = 256
+                          ) -> Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The HTML textured hands (``{html_root}/html_{i:03d}/hand.obj`` and
+    its texture, i < 52, less ``skip_ids``) -> (vertex-baked colours
+    (n, 778, 3), UVs (n, 778, 2), textures (n, T, T, 3)), or None when no
+    hand has both UVs and a texture."""
+    from PIL import Image
+
+    banks, uv_banks, tex_banks = [], [], []
+    for i in range(52):
+        if i in skip_ids:
+            continue
+        d = os.path.join(html_root, f"html_{i:03d}")
+        obj_path = os.path.join(d, "hand.obj")
+        if not os.path.isfile(obj_path):
+            continue
+        uvs, v_uv, tex = [], {}, None
+        with open(obj_path) as f:
+            for line in f:
+                t = line.split()
+                if not t:
+                    continue
+                if t[0] == "vt":
+                    uvs.append((float(t[1]), float(t[2])))
+                elif t[0] == "f":
+                    for corner in t[1:]:
+                        parts = corner.split("/")
+                        if len(parts) >= 2 and parts[1]:
+                            v_uv.setdefault(int(parts[0]) - 1, int(parts[1]) - 1)
+        for cand in ("texture.png", "texture.jpg", "hand.png", "hand.jpg"):
+            p = os.path.join(d, cand)
+            if os.path.isfile(p):
+                with Image.open(p) as im:
+                    tex = np.asarray(im.convert("RGB"), np.float32) / 255.0
+                break
+        if tex is None or not uvs:
+            continue
+        H, W = tex.shape[:2]
+        colors = np.full((n_verts, 3), 0.7, np.float32)
+        uv_arr = np.zeros((n_verts, 2), np.float32)
+        for v, vt in v_uv.items():
+            if v < n_verts and vt < len(uvs):
+                u, w = uvs[vt]
+                uv_arr[v] = (u, w)
+                colors[v] = tex[min(int((1.0 - w) * (H - 1)), H - 1), min(int(u * (W - 1)), W - 1)]
+        banks.append(colors)
+        uv_banks.append(uv_arr)
+        tex_banks.append(_resize_tex(tex, tex_size))
+    if not banks:
+        return None
+    return tuple(torch.from_numpy(np.stack(b)) for b in (banks, uv_banks, tex_banks))
+
+
+def load_html_hand_colors(html_root: str, n_verts: int = 778,
+                          skip_ids: Tuple[int, ...] = (2,)) -> Optional[torch.Tensor]:
+    """The vertex-baked colour bank of ``load_html_hand_assets`` alone."""
+    assets = load_html_hand_assets(html_root, n_verts, skip_ids)
+    return None if assets is None else assets[0]
+
+
 def default_render_assets(mano_model: ManoModel, n_bg: int = 8, n_tex: int = 8,
                           bg_size: int = 336, bgs_path: Optional[str] = None,
                           html_path: Optional[str] = None, device=None) -> RenderAssets:
-    """Synthetic stand-in banks (real background / HTML hand loaders are
-    not ported yet)."""
+    """The backgrounds under ``bgs_path`` and the HTML hands under
+    ``html_path`` where they exist, synthetic stand-ins otherwise."""
     device = resolve_device(device)
-    for name, path in (("background", bgs_path), ("HTML hand", html_path)):
-        if path and os.path.exists(path):
-            logger.warning(f"{name} assets ({path}) are not ported yet; using "
-                           "synthetic stand-ins")
-    uvs, texs = synthetic_hand_textures(mano_model.v_template.cpu().numpy(), n_tex)
+    backgrounds = load_backgrounds(bgs_path, bg_size) if bgs_path else None
+    html = load_html_hand_assets(html_path) if html_path else None
+    if html is not None:
+        bank, uvs, texs = html
+    else:
+        bank = synthetic_hand_color_bank(n_tex)
+        uvs, texs = synthetic_hand_textures(mano_model.v_template.cpu().numpy(), n_tex)
+    if backgrounds is None:
+        backgrounds = synthetic_backgrounds(n_bg, size=bg_size)
     return RenderAssets(
-        hand_faces=mano_model.faces.to(device),
-        hand_color_bank=synthetic_hand_color_bank(n_tex).to(device),
-        backgrounds=synthetic_backgrounds(n_bg, size=bg_size).to(device),
-        hand_uvs=uvs.to(device), hand_textures=texs.to(device))
+        hand_faces=mano_model.faces.to(device), hand_color_bank=bank.to(device),
+        backgrounds=backgrounds.to(device), hand_uvs=uvs.to(device),
+        hand_textures=texs.to(device))
 
 
 def compose_scene_arrays(hand_verts, hand_colors, hand_faces, overts_can, ocolors,

@@ -83,6 +83,10 @@ class SynthBatch:
         H = W = cfg.image_size
         self.raw_intr = torch.tensor([[cfg.fx, 0.0, cfg.cx], [0.0, cfg.fy, cfg.cy],
                                       [0.0, 0.0, 1.0]], device=self.device)
+        if (assets.hand_textures is None or assets.hand_uvs is None or obj_lib.textures is None
+                or obj_lib.uvs is None):
+            raise NotImplementedError("an asset without a texture takes the Gouraud synth "
+                                      "route (TEXTURED: false), which is not ported yet")
         hand_texs = assets.hand_textures.cpu().numpy()
         obj_texs = obj_lib.textures.cpu().numpy()
         T = max(hand_texs.shape[1], obj_texs.shape[1])

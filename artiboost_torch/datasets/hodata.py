@@ -6,22 +6,33 @@ geometry (side flip, bbox crop with jitter, affine and intrinsics update,
 root-relative joints and corners, OBJ_TRANSF rotation, the 40 % visibility
 rules, MANO annotations) and batch assembly with vertex padding.
 
-The geometry and its augmentation draws stay on the host in numpy, from
-the dataset's own ``np.random.RandomState(SEED)`` (:83, draws :243-258),
-so the port and the JAX package draw the same numbers. The pixel work runs
-batched on the device (``warp_affine_batch``): the semantics of the JAX
-package's default image path, ``native/hostops.cpp`` (:55-116)."""
+A batch is made in two halves. The host half (``host_half``) draws the
+geometry and its augmentation in numpy, from the dataset's own
+``np.random.RandomState(SEED)`` (:83, draws :243-258) in index order, so
+the port and the JAX package draw the same numbers; a dataset whose images
+are files decodes them there, into one uint8 (N, H, W, 3) RGB array (a
+pinned staging buffer of ``utils/prefetch.py`` when the batches are
+prefetched), by a pool of decode threads when one is given. The host half
+makes no CUDA call, so a worker thread can run it. The device half
+(``device_half``) copies the images to the device, or gathers them there
+for a dataset that keeps them on the device (``SyntheticHO``), flips the
+left-hand ones and runs the batched warp (``warp_affine_batch``): the
+semantics of the JAX package's default image path,
+``native/hostops.cpp`` (:55-116)."""
 from __future__ import annotations
 
+import time
 from abc import ABC, abstractmethod
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from artiboost_torch.datasets.hoquery import Queries, SynthQueries
 from artiboost_torch.mano.numpy_fk import aa_to_rotmat_np, mirror_mano_pose, rotmat_to_aa_np
+from artiboost_torch.utils import profiling
 from artiboost_torch.utils.misc import CONST, resolve_device
+from artiboost_torch.utils.prefetch import IN_PLACE
 
 
 def _np_affine(center, scale, optical_center, out_res, rot):
@@ -125,14 +136,52 @@ def warp_affine_batch(images: torch.Tensor, inv_affines: torch.Tensor, jitter: t
     return torch.clamp((img - gray) * j[:, 2] + gray, 0.0, 1.0) - 0.5
 
 
+def decode_rgb(path: str) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB: ``cv2.imread`` and BGR -> RGB,
+    as the JAX package reads."""
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise OSError(f"cannot identify image file {path!r}")
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+class HostBatch(NamedTuple):
+    """The host half of a batch: per-sample geometry without the pixels,
+    the crop warp's inputs and the decoded images (None for a dataset that
+    keeps its images on the device), the staging ring and slot that hold
+    them, if one does, and the host seconds of the geometry and of the
+    decode."""
+    geoms: List[Dict]
+    sample_idx: List[int]
+    flips: np.ndarray        # (N,) bool
+    inv_affines: np.ndarray  # (N, 2, 3) float32, crop -> raw
+    jitter: np.ndarray       # (N, 4) float32
+    images: Optional[np.ndarray] = None  # (N, H, W, 3) uint8 RGB
+    staging: Optional[object] = None     # utils.prefetch.StagingRing
+    slot: Optional[int] = None
+    seconds: Tuple[float, float] = (0.0, 0.0)
+
+
 class HODataset(ABC):
     """Abstract hand-object dataset with the reference accessor contract.
-    Images live on ``device`` as uint8; batches come out on it."""
+    A file-backed dataset implements ``get_image`` (decoded on the host); a
+    dataset that keeps its images on ``device`` as uint8 sets
+    ``images_on_host = False`` and implements ``get_images``. Batches come
+    out on ``device``."""
+
+    images_on_host = True
 
     def __init__(self, DATA_PRESET: Dict, device=None, **cfg):
         preset = DATA_PRESET
         self.device = resolve_device(device)
+        self.data_root = cfg.get("DATA_ROOT", "./data")
         self.data_split = cfg.get("DATA_SPLIT", "train")
+        self.use_cache = preset.get("USE_CACHE", True)
+        self.filter_no_contact = preset.get("FILTER_NO_CONTACT", False)
+        self.filter_thresh = float(preset.get("FILTER_THRESH", 0.0))
+        self.mini_factor = float(cfg.get("MINI_FACTOR", 1.0))
         self.bbox_expand_ratio = float(preset.get("BBOX_EXPAND_RATIO", 1.2))
         self.crop_model = preset.get("CROP_MODEL", "hand_obj")
         self.require_full_image = preset.get("FULL_IMAGE", False)
@@ -162,8 +211,13 @@ class HODataset(ABC):
     @abstractmethod
     def __len__(self) -> int: ...
 
-    @abstractmethod
-    def get_images(self, idx: torch.Tensor) -> torch.Tensor: ...  # (N, H, W, 3) uint8, device
+    def get_image(self, idx) -> np.ndarray:
+        """(H, W, 3) uint8 RGB of sample ``idx``, from its file."""
+        raise NotImplementedError(f"{type(self).__name__} keeps its images on the device")
+
+    def get_images(self, idx: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) uint8 on the device, for ``images_on_host = False``."""
+        raise NotImplementedError(f"{type(self).__name__} decodes its images on the host")
 
     @abstractmethod
     def get_cam_intr(self, idx) -> np.ndarray: ...   # (3, 3)
@@ -346,37 +400,88 @@ class HODataset(ABC):
         sample["_flip"] = flip
         return sample
 
-    def sample_batch(self, idx_list: Sequence[int]) -> Dict[str, torch.Tensor]:
-        """Batch assembly: the geometry per sample on the host, then one
-        batched warp of the images on the device."""
-        geoms = [self._make_geom(i) for i in idx_list]
-        sidx = torch.as_tensor([int(g[Queries.SAMPLE_IDX]) for g in geoms], device=self.device)
-        images = self.get_images(sidx)
-        flips = torch.as_tensor([bool(g.pop("_flip")) for g in geoms], device=self.device)
+    def host_half(self, idx_list: Sequence[int], pool=None, staging=None) -> HostBatch:
+        """The geometry of every sample, in order, then the decode of the
+        file-backed images into one (N, H, W, 3) uint8 array: a buffer taken
+        from ``staging`` (``utils.prefetch.StagingRing``) or a new one. The
+        decode runs on ``pool`` (an executor) when given; the geometry and
+        its draws stay on the calling thread."""
+        t0 = time.perf_counter()
+        with profiling.thread_trace("data/real_geometry"):
+            geoms = [self._make_geom(i) for i in idx_list]
+            sidx = [int(g[Queries.SAMPLE_IDX]) for g in geoms]
+            flips = np.array([bool(g.pop("_flip")) for g in geoms])
+            inv = np.stack([np.linalg.inv(g.pop("_affine"))[:2] for g in geoms]
+                           ).astype(np.float32)
+            jitter = np.stack([g.pop("_jitter") for g in geoms]).astype(np.float32)
+        t1 = time.perf_counter()
+        if not self.images_on_host:
+            return HostBatch(geoms, sidx, flips, inv, jitter, seconds=(t1 - t0, 0.0))
+        shape = (len(sidx), self.raw_size[1], self.raw_size[0], 3)
+        slot, images = staging.take(shape) if staging is not None else (
+            None, np.empty(shape, np.uint8))
+
+        def decode(k):
+            img = self.get_image(sidx[k])
+            if img.shape != shape[1:]:
+                raise ValueError(f"{type(self).__name__} sample {sidx[k]}: image "
+                                 f"{img.shape}, expected {shape[1:]} (raw_size {self.raw_size})")
+            images[k] = img
+
+        try:
+            with profiling.thread_trace("data/real_decode"):
+                if pool is None:
+                    for k in range(len(sidx)):
+                        decode(k)
+                else:
+                    list(pool.map(decode, range(len(sidx))))
+        except BaseException:
+            if staging is not None:
+                staging.give_back(slot)
+            raise
+        return HostBatch(geoms, sidx, flips, inv, jitter, images, staging, slot,
+                         (t1 - t0, time.perf_counter() - t1))
+
+    def device_half(self, host: HostBatch) -> Dict[str, torch.Tensor]:
+        """Upload (or gather on the device), flip, warp, collate. Runs on
+        the thread that owns the device stream."""
+        if host.images is None:
+            images = self.get_images(torch.as_tensor(host.sample_idx, device=self.device))
+        elif host.staging is not None:
+            images = host.staging.upload(host.slot, self.device)
+        else:
+            images = torch.from_numpy(host.images).to(self.device)
+        flips = torch.as_tensor(host.flips, device=self.device)
         images = torch.where(flips[:, None, None, None], images.flip(2), images)
-        inv = np.stack([np.linalg.inv(g.pop("_affine"))[:2] for g in geoms]).astype(np.float32)
-        jitter = np.stack([g.pop("_jitter") for g in geoms])
-        batch = ho_collate(geoms, self.device)
+        batch = ho_collate(host.geoms, self.device)
         batch[Queries.IMAGE] = warp_affine_batch(
-            images, torch.from_numpy(inv).to(self.device), torch.from_numpy(jitter).to(self.device),
-            self.image_size[1], self.image_size[0])
+            images, torch.from_numpy(host.inv_affines).to(self.device),
+            torch.from_numpy(host.jitter).to(self.device), self.image_size[1], self.image_size[0])
         return batch
+
+    def sample_batch(self, idx_list: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """Batch assembly on the calling thread: the host half, then the
+        device half."""
+        return self.device_half(self.host_half(idx_list))
 
 
 def padded_host_loader(dataset: HODataset, batch_size: int, shuffle: bool = False,
-                       seed: int = 0):
+                       seed: int = 0, host=None):
     """Batches over the WHOLE dataset for evaluation passes: the last
     partial batch is repeat-padded to ``batch_size`` and carries
-    ``Queries.SAMPLE_VALID`` (1 real / 0 pad), which the metrics honour."""
-    n = len(dataset)
-    order = np.arange(n)
+    ``Queries.SAMPLE_VALID`` (1 real / 0 pad), which the metrics honour.
+    The host halves come from ``host`` (a ``utils.prefetch.HostPipeline``;
+    made in place without one), as the train pass's do; the device halves
+    run on the calling thread."""
+    order = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
-    for s in range(0, n, batch_size):
-        idx = order[s:s + batch_size].tolist()
-        n_valid = len(idx)
-        idx += [idx[-1]] * (batch_size - n_valid)
-        batch = dataset.sample_batch(idx)
+    plan = ((idx + [idx[-1]] * (batch_size - len(idx)), len(idx))
+            for idx in (order[s:s + batch_size].tolist()
+                        for s in range(0, len(order), batch_size)))
+    for hb, n_valid in (host or IN_PLACE).host_halves(dataset, plan, batch_size):
+        with profiling.trace("data/real_device"):
+            batch = dataset.device_half(hb)
         if n_valid < batch_size:
             valid = torch.zeros((batch_size,), dtype=torch.float32, device=dataset.device)
             valid[:n_valid] = 1.0

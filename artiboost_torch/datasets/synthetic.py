@@ -1,7 +1,8 @@
 """SyntheticHO: a deterministic stand-in for the real HO3D / DexYCB data,
 made by the port's own pose generator and Gouraud renderer at init
 (counterpart of ``artiboost_tpu/datasets/synthetic.py``), and
-``build_dataset``, the ``DATASET.TRAIN`` builder.
+``build_dataset``, the ``DATASET.TRAIN`` / ``TEST`` builder over it and the
+real-data loaders (``ho3d.py``, ``dexycb.py``, ``fhb.py``).
 
 The random half of the init is split out (``synthetic_ho_draws``): the
 (obj, view, grasp) ids, the pose draws (view jitter, ``naive`` scrambler),
@@ -34,6 +35,9 @@ from artiboost_torch.artiboost.renderer import (
 )
 from artiboost_torch.artiboost.scrambler import Scrambler
 from artiboost_torch.artiboost.view_engine import ViewEngineConfig
+from artiboost_torch.datasets.dexycb import DexYCB
+from artiboost_torch.datasets.fhb import FPHB
+from artiboost_torch.datasets.ho3d import HO3D, HO3DV3
 from artiboost_torch.datasets.hodata import HODataset
 from artiboost_torch.mano.model import get_mano_model
 
@@ -56,6 +60,8 @@ def synthetic_ho_draws(generator: torch.Generator, n: int, n_obj: int, n_persp: 
 
 class SyntheticHO(HODataset):
     """A pre-rendered set of hand-object scenes with full annotations."""
+
+    images_on_host = False
 
     def __init__(self, DATA_PRESET: Dict, device=None, draws: Optional[Dict] = None, **cfg):
         super().__init__(DATA_PRESET, device=device, **cfg)
@@ -157,7 +163,8 @@ class SyntheticHO(HODataset):
         return self._hand_shape[idx]
 
 
-DATASETS = {"SyntheticHO": SyntheticHO}
+DATASETS = {"SyntheticHO": SyntheticHO, "HO3D": HO3D, "HO3DV3": HO3DV3, "DexYCB": DexYCB,
+            "FPHB": FPHB}
 
 
 REAL_DATA_TYPES = ("HO3D", "HO3DV3", "DexYCB", "FPHB")
@@ -186,8 +193,8 @@ def build_dataset(cfg: Dict, data_preset: Dict, device=None) -> HODataset:
     """A ``DATASET.TRAIN`` / ``TEST`` node -> dataset. A real-data type
     whose data is absent raises ``FileNotFoundError`` as the JAX package's
     does (the entry point then trains synth-only or skips the test passes);
-    one whose data is present, or any other type the port lacks, raises
-    ``NotImplementedError`` with its name."""
+    a type that neither package knows raises ``NotImplementedError`` with
+    its name."""
     cfg = dict(cfg)
     kind = cfg.pop("TYPE")
     missing = missing_real_data(kind, cfg) if kind in REAL_DATA_TYPES else None

@@ -9,9 +9,12 @@ criterion, the evaluator, the test evaluator (the evaluator's metrics less
 (the reference runs it at startup AND at the top of every epoch, which
 double-counts the occurrence map; kept for parity), then per epoch:
 ``prepare()``; the train epoch over mixed real+synth batches (the real half
-from the dataset, the synth half rendered from the epoch's poses, joined
-over the key union, then the train step, the evaluator fed with preds,
-batch and losses); when ``should_val``, ``prepare_val()`` and the val
+from the dataset: its host half, geometry and image decode, made two
+batches ahead by ``utils/prefetch.py``'s ``HostPipeline`` with ``workers``
+decode threads, its device half, upload, flip and warp, on this thread;
+the synth half rendered from the epoch's poses; the two joined over the
+key union, then the train step, the evaluator fed with preds, batch and
+losses); when ``should_val``, ``prepare_val()`` and the val
 pass, which refills the evaluator; then ``step_eval()`` (the mining
 reweight) from whatever the evaluator holds, so an epoch without a val
 sweep mines from the train epoch as the JAX package does; then, every
@@ -30,7 +33,7 @@ pass; ``profile`` traces epoch 0 with ``torch.profiler``
 Usage:
     python -m artiboost_torch.train --cfg config/synthetic_smoke.yaml \\
         [--epochs N] [--batch_size B] [--device cuda|cpu] [--exp_id NAME] [--snapshot 50] \\
-        [--test_freq 5] [--profile_dir DIR] [--profile_steps 20] [--allow_dirty]
+        [--test_freq 5] [--profile_dir DIR] [--profile_steps 20] [--workers 20] [--allow_dirty]
     python -m artiboost_torch.train --resume exp/<exp_id>_<timestamp> [--evaluate] [--device cpu]
 """
 from __future__ import annotations
@@ -55,6 +58,8 @@ from artiboost_torch.utils import profiling
 from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.config import load_config
 from artiboost_torch.utils.misc import LOG_FORMAT, logger, resolve_device
+from artiboost_torch.utils.pretrained import load_arch_pretrained
+from artiboost_torch.utils.prefetch import IN_PLACE, HostPipeline
 from artiboost_torch.utils.recorder import Recorder
 from artiboost_torch.utils.summarizer import Summarizer
 
@@ -97,17 +102,33 @@ def slice_config(cfg: Dict) -> Dict:
 
 def train_epoch(loader: ArtiBoostLoader, step: TrainStep, evaluator: Evaluator,
                 timer: StageTimer, summarizer: Optional[Summarizer] = None,
-                stop_trace_after: Optional[int] = None) -> Dict:
+                stop_trace_after: Optional[int] = None,
+                host: Optional[HostPipeline] = None) -> Dict:
     """One train epoch: -> {"steps", "images", "seconds" (host wall clock
-    of the epoch), "final_loss": [per-step device scalars]}. Each step is a
+    of the epoch), "final_loss": [per-step device scalars], "real_host"
+    (seconds of the real halves' geometry and decode, on the producer)}.
+    The host halves of ``loader.iter_plan``'s real batches come from
+    ``host.host_halves`` (made in place without a ``host``; the stage
+    ``real wait`` is the time the step waited for one); their device
+    half (upload, flip, warp) is the stage ``real batch``. Each step is a
     trace range ``train#<optimizer step>``; a running trace stops after
     step ``stop_trace_after``."""
     evaluator.reset_all()
-    out = {"steps": 0, "images": 0, "final_loss": []}
+    out = {"steps": 0, "images": 0, "final_loss": [], "real_host": [0.0, 0.0]}
+    real_data = loader.real_dataset
     t = t_start = timer.mark()
-    for bidx, (real, sidx) in enumerate(loader.iter_parts()):
-        t = timer.add("real batch", t)
+    halves = (host or IN_PLACE).host_halves(real_data, loader.iter_plan(),
+                                            loader._mixed_counts()[0])
+    for bidx, (hb, sidx) in enumerate(halves):
+        t = timer.add("real wait", t)
+        real = None
+        if hb is not None:
+            with profiling.trace("data/real_device"):
+                real = real_data.device_half(hb)
+            out["real_host"] = [a + b for a, b in zip(out["real_host"], hb.seconds)]
+            t = timer.add("real batch", t)
         with profiling.step_trace("train", step.step):
+            sidx = loader.synth_indices(sidx)
             synth = None if sidx is None else loader.synth_part(sidx)
             t = timer.add("synth batch", t)
             batch = union_concat([p for p in (real, synth) if p])
@@ -146,16 +167,18 @@ def val_epoch(loader: ArtiBoostLoader, model: torch.nn.Module, criterion,
 
 
 def test_epoch(test_data, batch_size: int, model: torch.nn.Module, criterion,
-               evaluator: Evaluator, draws: DrawSource, timer: StageTimer) -> Dict:
+               evaluator: Evaluator, draws: DrawSource, timer: StageTimer,
+               host: Optional[HostPipeline] = None) -> Dict:
     """The TEST pass (``train_artiboost.py:372-378``): every sample of the
     test split once, the tail batch repeat-padded and masked by
-    SAMPLE_VALID (``padded_host_loader``), through the model with its
-    running statistics; the evaluator refilled. Charged to the stage
-    ``test pass``. -> {"batches", "images"}."""
+    SAMPLE_VALID (``padded_host_loader``, its host halves prefetched by
+    ``host`` as the train pass's are), through the model with its running
+    statistics; the evaluator refilled. Charged to the stage ``test pass``.
+    -> {"batches", "images"}."""
     evaluator.reset_all()
     out = {"batches": 0, "images": len(test_data)}
     t = timer.mark()
-    for batch in padded_host_loader(test_data, batch_size):
+    for batch in padded_host_loader(test_data, batch_size, host=host):
         preds, losses = eval_step(model, criterion, batch, draws.loss(criterion))
         evaluator.feed_all(preds, batch, losses)
         out["batches"] += 1
@@ -180,7 +203,7 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
         draws: Optional[DrawSource] = None, timer: Optional[StageTimer] = None,
         recorder: Optional[Recorder] = None, resume: bool = False, snapshot: int = 50,
         summarizer: Optional[Summarizer] = None, test_freq: int = 5, evaluate: bool = False,
-        profile: Optional[Tuple[str, int]] = None) -> Dict:
+        profile: Optional[Tuple[str, int]] = None, workers: int = 20) -> Dict:
     """Train for ``epochs`` (default TRAIN.EPOCH). ``device`` None means
     CUDA (raises without one). ``model_state`` is the state dict of the
     ARCH's model, any of HybridBaseline, HOPRegNet, HoNet and
@@ -193,7 +216,11 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
     ``test_freq``: a TEST pass every that many epochs (0: none);
     ``evaluate``: one TEST pass, no training (raises without a TEST
     split). ``profile`` = (directory, steps): a trace from epoch 0's
-    ``prepare()`` through its train step ``steps``. Returns the loader, the
+    ``prepare()`` through its train step ``steps``. ``workers`` threads
+    decode the real splits' images, whose host halves are made two batches
+    ahead (``utils/prefetch.py``). Without ``model_state`` the ARCH's
+    ``BACKBONE.PRETRAINED`` and ``PRETRAINED`` files load as the JAX entry
+    point loads them (``utils/pretrained.py``). Returns the loader, the
     evaluators, model, train step, timer and the per-epoch counts."""
     if resume and recorder is None:
         raise ValueError("resume needs the recorder of the experiment to resume")
@@ -221,6 +248,8 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
         arch = build_arch(cfg["ARCH"], data_preset)
     if model_state is not None:
         arch.model_list[0].load_state_dict(model_state)
+    else:
+        load_arch_pretrained(arch, cfg["ARCH"])
     if recorder is not None:
         recorder.record_arch(arch)
     step = TrainStep(arch, criterion, cfg["TRAIN"], device=device)
@@ -235,68 +264,74 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
         if ab_state is not None:
             loader.load_state_dict(ab_state)
         logger.info(f"resumed from epoch {epoch_start}")
-    out = {"loader": loader, "evaluator": evaluator, "test_evaluator": test_evaluator,
-           "model": arch, "step": step, "timer": timer, "history": [],
-           "train_data": train_data, "test_data": test_data}
+    host = HostPipeline(workers) if any(d is not None and d.images_on_host
+                                        for d in (train_data, test_data)) else None
+    try:
+        out = {"loader": loader, "evaluator": evaluator, "test_evaluator": test_evaluator,
+               "model": arch, "step": step, "timer": timer, "history": [],
+               "train_data": train_data, "test_data": test_data}
 
-    def test_pass(epoch: int) -> Dict:
-        res = test_epoch(test_data, batch_size, arch, criterion, test_evaluator,
-                         loader.draws, timer)
-        res["measures"] = test_evaluator.get_measures_all_striped()
-        if recorder is not None:
-            recorder.record_evaluator(test_evaluator, epoch, "test")
-        logger.info(f"test epoch {epoch}: {res['batches']} batches | {test_evaluator}")
-        return res
+        def test_pass(epoch: int) -> Dict:
+            res = test_epoch(test_data, batch_size, arch, criterion, test_evaluator,
+                             loader.draws, timer, host)
+            res["measures"] = test_evaluator.get_measures_all_striped()
+            if recorder is not None:
+                recorder.record_evaluator(test_evaluator, epoch, "test")
+            logger.info(f"test epoch {epoch}: {res['batches']} batches | {test_evaluator}")
+            return res
 
-    if evaluate:
-        if test_data is None:
-            raise RuntimeError("--evaluate requires a TEST dataset")
-        out["history"].append({"epoch": epoch_start, "test": test_pass(epoch_start)})
+        if evaluate:
+            if test_data is None:
+                raise RuntimeError("--evaluate requires a TEST dataset")
+            out["history"].append({"epoch": epoch_start, "test": test_pass(epoch_start)})
+            return out
+
+        for epoch in range(epoch_start, n_epochs):
+            traced = profile is not None and epoch == 0
+            if traced:
+                profiling.start_trace(profile[0])
+            t = timer.mark()
+            with profiling.trace("artiboost/prepare"):
+                loader.prepare()
+            timer.add("pose sweep", t)
+            record = {"epoch": epoch, "train": train_epoch(
+                loader, step, evaluator, timer, summarizer,
+                stop_trace_after=profile[1] if traced else None, host=host)}
+            profiling.stop_trace()  # a no-op unless a short epoch left the trace running
+            record["train"]["measures"] = evaluator.get_measures_all_striped()
+            if summarizer is not None:
+                summarizer.summarize_evaluator(evaluator, epoch, "train")
+            if recorder is not None:
+                recorder.record_evaluator(evaluator, epoch, "train")
+            if loader.should_val(epoch):
+                t = timer.mark()
+                with profiling.trace("artiboost/prepare_val"):
+                    loader.prepare_val()
+                timer.add("pose sweep", t)
+                record["val"] = val_epoch(loader, arch, criterion, evaluator, timer)
+                record["val"]["measures"] = evaluator.get_measures_all_striped()
+                if summarizer is not None:
+                    summarizer.summarize_evaluator(evaluator, epoch, "val")
+                if recorder is not None:
+                    recorder.record_evaluator(evaluator, epoch, "val")
+            t = timer.mark()
+            loader.step_eval(epoch, evaluator)
+            timer.add("metric+mining", t)
+            if recorder is not None:
+                recorder.record_checkpoints(step, epoch, loader.state_dict(), snapshot=snapshot)
+            record["train"]["final_loss"] = [float(v) for v in record["train"]["final_loss"]]
+            logger.info(f"epoch {epoch}: {record['train']['steps']} train steps, "
+                        f"{record.get('val', {}).get('batches', 0)} val batches | {evaluator}")
+            if test_data is not None and test_freq > 0 and (epoch + 1) % test_freq == 0:
+                record["test"] = test_pass(epoch)
+                if summarizer is not None:
+                    summarizer.summarize_evaluator(test_evaluator, epoch, "test")
+            out["history"].append(record)
         return out
 
-    for epoch in range(epoch_start, n_epochs):
-        traced = profile is not None and epoch == 0
-        if traced:
-            profiling.start_trace(profile[0])
-        t = timer.mark()
-        with profiling.trace("artiboost/prepare"):
-            loader.prepare()
-        timer.add("pose sweep", t)
-        record = {"epoch": epoch, "train": train_epoch(
-            loader, step, evaluator, timer, summarizer,
-            stop_trace_after=profile[1] if traced else None)}
-        profiling.stop_trace()  # a no-op unless a short epoch left the trace running
-        record["train"]["measures"] = evaluator.get_measures_all_striped()
-        if summarizer is not None:
-            summarizer.summarize_evaluator(evaluator, epoch, "train")
-        if recorder is not None:
-            recorder.record_evaluator(evaluator, epoch, "train")
-        if loader.should_val(epoch):
-            t = timer.mark()
-            with profiling.trace("artiboost/prepare_val"):
-                loader.prepare_val()
-            timer.add("pose sweep", t)
-            record["val"] = val_epoch(loader, arch, criterion, evaluator, timer)
-            record["val"]["measures"] = evaluator.get_measures_all_striped()
-            if summarizer is not None:
-                summarizer.summarize_evaluator(evaluator, epoch, "val")
-            if recorder is not None:
-                recorder.record_evaluator(evaluator, epoch, "val")
-        t = timer.mark()
-        loader.step_eval(epoch, evaluator)
-        timer.add("metric+mining", t)
-        if recorder is not None:
-            recorder.record_checkpoints(step, epoch, loader.state_dict(), snapshot=snapshot)
-        record["train"]["final_loss"] = [float(v) for v in record["train"]["final_loss"]]
-        logger.info(f"epoch {epoch}: {record['train']['steps']} train steps, "
-                    f"{record.get('val', {}).get('batches', 0)} val batches | {evaluator}")
-        if test_data is not None and test_freq > 0 and (epoch + 1) % test_freq == 0:
-            record["test"] = test_pass(epoch)
-            if summarizer is not None:
-                summarizer.summarize_evaluator(test_evaluator, epoch, "test")
-        out["history"].append(record)
-    return out
-
+    finally:
+        if host is not None:
+            host.close()
 
 def main(argv=None) -> Dict:
     """The command line (``artiboost_tpu/opt.py``'s flags that the port
@@ -319,6 +354,8 @@ def main(argv=None) -> Dict:
                     help="write a torch.profiler Chrome trace of epoch 0 here")
     ap.add_argument("--profile_steps", type=int, default=20,
                     help="the trace ends after this train step of epoch 0")
+    ap.add_argument("--workers", type=int, default=20,
+                    help="host data worker threads (image decode)")
     ap.add_argument("--allow_dirty", action="store_true",
                     help="record a named experiment from an uncommitted tree")
     args = ap.parse_args(argv)
@@ -340,7 +377,8 @@ def main(argv=None) -> Dict:
     try:
         out = run(cfg, epochs=args.epochs, device=device, recorder=recorder,
                   resume=bool(args.resume), snapshot=args.snapshot, summarizer=summarizer,
-                  test_freq=args.test_freq, evaluate=args.evaluate, profile=profile)
+                  test_freq=args.test_freq, evaluate=args.evaluate, profile=profile,
+                  workers=args.workers)
     finally:
         summarizer.close()
         recorder.close()

@@ -7,7 +7,15 @@ zero-filled (integer id keys get -1) and a per-key per-sample validity
 mask is emitted under ``KEY_VALID``. Every loss folds the masks of the
 keys it reads into its per-sample weighting through ``key_validity``, so
 filled samples contribute exactly zero. When every part carries every
-key, no mask dict is emitted and the batch is a plain concatenation."""
+key, no mask dict is emitted and the batch is a plain concatenation.
+
+Object vertices are padded per batch (``ho_collate``, ``PADDING_MASK``), so
+a real half (HO3D's YCB meshes) and a synth half (the object library's
+``V_MAX``) can disagree on their count: the shorter part is padded as
+``ho_collate`` pads the samples joined, its ``PADDING_MASK`` with zeros,
+so a masked loss or metric reads each sample's own vertices only. (The JAX
+package's ``union_concat`` concatenates them as they are and raises there,
+ROADMAP C.)"""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
@@ -19,6 +27,46 @@ KEY_VALID = "_key_valid"
 
 # integer id keys whose natural missing value is -1, not 0
 _NEG_ONE_FILL = {"sample_idx", "obj_id", "persp_id", "grasp_id", "obj_idx"}
+# per-vertex keys padded to the batch's longest object (ho_collate)
+_VERTEX_KEYS = ("obj_verts_3d", "obj_verts_can", "obj_verts_2d")
+_PADDING_MASK = "padding_mask"
+
+
+def _vertex_count(part: Dict) -> Optional[int]:
+    for k in _VERTEX_KEYS + (_PADDING_MASK,):
+        if k in part:
+            return int(part[k].shape[1])
+    return None
+
+
+def _pad_vertices(parts: List[Dict]) -> List[Dict]:
+    """Parts that disagree on the vertex count -> parts padded to the
+    longest as ``ho_collate`` pads the samples joined: each sample's own
+    vertices (those of its ``PADDING_MASK``, a prefix) repeated cyclically,
+    the mask extended with zeros."""
+    counts = [_vertex_count(p) for p in parts]
+    if len({c for c in counts if c is not None}) < 2:
+        return parts
+    n = max(c for c in counts if c is not None)
+    out = []
+    for p, v in zip(parts, counts):
+        if v is None or v == n:
+            out.append(p)
+            continue
+        p = dict(p)
+        mask = p.get(_PADDING_MASK)
+        dev = mask.device if mask is not None else p[_VERTEX_KEYS[0]].device
+        b = _batch_size(p)
+        own = (torch.full((b,), v, device=dev) if mask is None
+               else torch.clamp_min((mask > 0).sum(1), 1))
+        idx = torch.arange(n, device=dev)[None] % own[:, None]  # (B, n)
+        for k in _VERTEX_KEYS:
+            if k in p:
+                p[k] = torch.gather(p[k], 1, idx[..., None].expand(-1, -1, p[k].shape[2]))
+        if mask is not None:
+            p[_PADDING_MASK] = (torch.arange(n, device=dev)[None] < own[:, None]).to(mask.dtype)
+        out.append(p)
+    return out
 
 
 def _batch_size(part: Dict) -> int:
@@ -45,6 +93,7 @@ def union_concat(parts: Sequence[Dict]) -> Dict:
     parts = [p for p in parts if p]
     if len(parts) == 1:
         return dict(parts[0])
+    parts = _pad_vertices(parts)
     sizes = [_batch_size(p) for p in parts]
     all_keys: List[str] = []
     for p in parts:

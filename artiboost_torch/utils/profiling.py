@@ -11,19 +11,27 @@ or programmatically::
         loader.prepare()
 
 A process holds one profiler session at a time, as it does in
-``torch.profiler`` itself, so the session is module state."""
+``torch.profiler`` itself, so the session is module state. The profiler's
+callbacks are thread-local and see only the thread that started it: a
+range on another thread (the data pipeline's producer) is a
+``thread_trace``, kept by this module and merged into the exported trace
+on that thread's row."""
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from artiboost_torch.utils.misc import logger
 
-_session: Optional[tuple] = None  # (profiler, trace directory) while tracing
+# (profiler, trace directory, [(name, thread id, start ns, end ns) of
+# thread_trace]) while tracing
+_session: Optional[tuple] = None
 
 
 def trace(name: str):
@@ -36,6 +44,37 @@ def step_trace(name: str, step: int):
     return torch.profiler.record_function(f"{name}#{step}")
 
 
+@contextlib.contextmanager
+def thread_trace(name: str):
+    """A named range on any thread, kept while a trace runs and written
+    into it (``stop_trace``)."""
+    session = _session
+    if session is None:
+        yield
+        return
+    t0 = time.time_ns()
+    try:
+        yield
+    finally:
+        session[2].append((name, threading.get_native_id(), t0, time.time_ns()))
+
+
+def _merge_thread_spans(path: str, spans: List[tuple]) -> None:
+    """Append ``thread_trace`` ranges to the Chrome trace at ``path`` (its
+    timestamps are microseconds after ``baseTimeNanoseconds``)."""
+    if not spans:
+        return
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    doc["traceEvents"] += [{"ph": "X", "cat": "user_annotation", "name": name, "pid": pid,
+                            "tid": tid, "ts": (t0 - base) / 1e3, "dur": (t1 - t0) / 1e3}
+                           for name, tid, t0, t1 in spans]
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
 def start_trace(log_dir: str) -> None:
     """Start tracing CPU activity, and CUDA activity where there is a card;
     a no-op while a trace runs."""
@@ -46,7 +85,7 @@ def start_trace(log_dir: str) -> None:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
         prof.start()
-        _session = (prof, log_dir)
+        _session = (prof, log_dir, [])
 
 
 def stop_trace() -> Optional[str]:
@@ -56,12 +95,13 @@ def stop_trace() -> Optional[str]:
     global _session
     if _session is None:
         return None
-    prof, log_dir = _session
+    prof, log_dir, spans = _session
     _session = None
     prof.stop()
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"trace_{time.strftime('%Y_%m%d_%H%M_%S')}_{os.getpid()}.json")
     prof.export_chrome_trace(path)
+    _merge_thread_spans(path, spans)
     logger.info(f"trace written to {path}")
     return path
 

@@ -77,11 +77,29 @@ Phases, each fatal on failure:
      moving weights only where both the EPE and the MSSD maps saw a
      triplet, the TEST pass's AR recalls in [0, 1], and the line saying
      that MODEL_INFO_PATH is absent and the symmetries are identity.
-Every launch counter is zeroed just before phases 4 to 10 and read just
+ 11. the released recipe on real-layout data at full width: in a temporary
+     working directory, HO3D's train (480 frames) and evaluation (160)
+     splits at 640x480 with their frame lists, the recipe's four YCB meshes
+     (3,072 vertices, MTL, 1024x1024 textures) and their supplementary
+     meshes, 50 grasps per object, 64 backgrounds, 16 HTML hands and a
+     torchvision-named ResNet34 (``artiboost_torch/datasets/layouts.py``);
+     ``artiboost_torch.train.main`` on config/ho3dv2_clasbased_artiboost.yaml
+     unchanged but DATA_ROOT, EVAL_FREQ 1 and VAL_START_EPOCH 0: 2 epochs of
+     6 steps of 80 HO3D + 48 synth images, the released VAL_LEN's val sweep,
+     ``--test_freq 1``, a trace of epoch 0 through step 6. It checks every
+     batch's split, that each TEST pass covered every evaluation frame, the
+     loaded assets (no stand-in warning; 2,048 vertices a mesh after
+     decimation), the backbone equal to the file before the first step,
+     finite losses, the reweight, and launches (uv for every train step and
+     val batch, no rgb, no binned); it prints the real batch's host
+     geometry and decode, upload+warp and the step's wait on the
+     prefetcher, the stages, the trace's idle share, and B1 held against
+     its twin and timed on a train batch at these assets (F, atlas).
+Every launch counter is zeroed just before phases 4 to 11 and read just
 after each. TF32 is off. The lines before the last: the kernel table as one
-JSON object (B1 and B2 launches from phases 8, 9 and 10, summed and by
-phase, B3 launches from phase 6) and the card's name and power limit; the
-last line: the ok JSON.
+JSON object (B1 and B2 launches from phases 8 to 11, summed and by phase,
+B3 launches from phase 6) and the card's name and power limit; the last
+line: the ok JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
 """
@@ -673,6 +691,210 @@ def other_recipe(phase: int, recipe: str, card: str, read_counts, zero_counts) -
     return launches
 
 
+REAL_OBJS = ("010_potted_meat_can", "021_bleach_cleanser", "006_mustard_bottle",
+             "019_pitcher_base")
+REAL_TRAIN_SEQS = {f"{p}{i}": 60 for p in ("ABF1", "GPMF1") for i in range(4)}  # 480 frames
+REAL_TEST_SEQS = {"SM1": 80, "MPM10": 80}  # 160 frames: a batch of 128 and one padded from 32
+REAL_HTML_IDS = tuple(i for i in range(17) if i != 2)  # 16 hands (the loader skips html_002)
+
+
+def write_real_layout(root: str, repo_cfg) -> dict:
+    """The released recipe's files under ``root`` in the official layouts
+    (``artiboost_torch/datasets/layouts.py``): HO3D's train (480 frames) and
+    evaluation (160) splits at 640x480 with their frame lists, the four
+    YCB meshes of the recipe (48 x 64 = 3,072 vertices each, MTL, a
+    1024x1024 texture), their supplementary meshes, 50 grasps each, 64
+    backgrounds, 16 HTML hands and a torchvision-named ResNet34. -> what
+    was written."""
+    import numpy as np
+
+    from artiboost_torch.datasets import layouts
+    from artiboost_torch.mano.model import get_mano_model
+
+    rng = np.random.RandomState(11)
+    data = os.path.join(root, "data")
+    n_train = layouts.write_ho3d(data, "train", REAL_TRAIN_SEQS, REAL_OBJS, rng, n_images=24)
+    n_test = layouts.write_ho3d(data, "test", REAL_TEST_SEQS, REAL_OBJS, rng, n_images=8)
+    layouts.write_ycb_models(os.path.join(data, "YCB_models_process"), REAL_OBJS, rng,
+                             n_lat=48, n_lon=64, tex_size=1024)
+    layouts.write_ycb_models(os.path.join(data, "YCB_models_supp"), REAL_OBJS, rng, n_lat=24,
+                             n_lon=32, tex_size=64, mesh_name="textured_simple_ds.obj")
+    layouts.write_grasps(os.path.join(root, "assets", "grasp_engine", "ycb_grasp"), REAL_OBJS,
+                         50, rng)
+    layouts.write_backgrounds(os.path.join(root, repo_cfg["MANAGER"]["RENDERER"]["BGS_PATH"]),
+                              64, rng)
+    mano = get_mano_model(device="cpu")
+    layouts.write_html_hands(os.path.join(data, "HTML_supp"), REAL_HTML_IDS,
+                             mano.v_template.numpy(), mano.faces.numpy(), rng)
+    imagenet = os.path.join(root, "checkpoints", "imagenet", "resnet34-b627a593.pth")
+    sd = layouts.write_imagenet_resnet(imagenet, "ResNet34", seed=5)
+    return {"data": data, "n_train": n_train, "n_test": n_test, "imagenet": sd}
+
+
+def real_data_recipe(card: str, kernels: dict, hold, read_counts, zero_counts) -> dict:
+    """Phase 11: ``artiboost_torch.train.main`` on the released recipe with
+    its data on disk (``write_real_layout`` in a temporary working
+    directory), the config unchanged but DATA_ROOT, EVAL_FREQ 1 and
+    VAL_START_EPOCH 0: 2 epochs of 6 mixed steps (80 HO3D + 48 synth), the
+    val sweep of the released VAL_LEN, a TEST pass over the 160 evaluation
+    frames after each epoch, a trace of epoch 0 through step 6. Holds B1 on
+    a train batch at these assets against its twin and times it. Everything
+    it writes is removed. -> the launches of the run."""
+    import logging
+
+    import torch
+    import yaml
+
+    from artiboost_torch import train
+    from artiboost_torch.artiboost import renderer
+    from artiboost_torch.datasets.hodata import HODataset
+    from artiboost_torch.ops.rasterizer_cuda import prepare_raster, raster_uv
+    from artiboost_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
+    cfg["TRAIN"].update(EVAL_FREQ=1, VAL_START_EPOCH=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    records = {"parts": [], "test_idx": [], "backbone": None, "raster": None, "warnings": []}
+    orig = {"union": train.union_concat, "pretrained": train.load_arch_pretrained,
+            "device_half": HODataset.device_half, "raster": renderer.rasterize_batch_uv}
+
+    def union(parts):
+        records["parts"].append([int(p["image"].shape[0]) for p in parts])
+        return orig["union"](parts)
+
+    def pretrained(arch, arch_cfg):
+        loaded = orig["pretrained"](arch, arch_cfg)
+        records["backbone"] = {k: v.detach().cpu().clone() for k, v in
+                               arch.model_list[0].state_dict().items() if k.startswith("backbone.")}
+        return loaded
+
+    def device_half(self, host):
+        if self.data_split == "test":
+            records["test_idx"].append(list(host.sample_idx))
+        return orig["device_half"](self, host)
+
+    def raster(*args, **kw):
+        if records["raster"] is None:
+            records["raster"] = (args, kw)
+        return orig["raster"](*args, **kw)
+
+    class Warnings(logging.Handler):
+        def emit(self, record):
+            records["warnings"].append(record.getMessage())
+
+    handler = Warnings(logging.WARNING)
+    logging.getLogger("artiboost_torch").addHandler(handler)
+    train.union_concat, train.load_arch_pretrained = union, pretrained
+    HODataset.device_half, renderer.rasterize_batch_uv = device_half, raster
+    try:
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        written = write_real_layout(tmp, cfg)
+        t_write = time.perf_counter() - t0
+        for split in ("TRAIN", "TEST"):
+            cfg["DATASET"][split]["DATA_ROOT"] = written["data"]
+        with open("released.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = train.main(["--cfg", "released.yaml", "--exp_id", "smoke11", "--epochs", "2",
+                          "--test_freq", "1", "--profile_dir", os.path.join(tmp, "trace"),
+                          "--profile_steps", "6"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        hist, loader, timer = out["history"], out["loader"], out["timer"]
+        n_train, n_test = written["n_train"], written["n_test"]
+        check(len(out["train_data"]) == n_train and len(out["test_data"]) == n_test,
+              f"phase 11 built {len(out['train_data'] or [])} train and "
+              f"{len(out['test_data'] or [])} test samples, wrote {n_train} and {n_test}")
+        steps = sum(r["train"]["steps"] for r in hist)
+        val_batches = sum(r.get("val", {}).get("batches", 0) for r in hist)
+        check(loader._mixed_counts() == (80, 48) and len(loader) == 6 and steps == 12
+              and records["parts"] == [[80, 48]] * steps,
+              f"phase 11: batches {records['parts'][:3]}..., mixed counts "
+              f"{loader._mixed_counts()}, {steps} steps")
+        tests = [r["test"] for r in hist if "test" in r]
+        want_idx = sorted(range(n_test))
+        seen = [sorted(set(sum(records["test_idx"][2 * i:2 * i + 2], []))) for i in range(2)]
+        check(len(tests) == 2 and all(t["batches"] == 2 for t in tests)
+              and seen == [want_idx, want_idx],
+              f"phase 11: TEST passes {[(t['batches'], t['images']) for t in tests]} did not "
+              "cover every evaluation frame")
+        stand_in = [m for m in records["warnings"] if "using synthetic" in m
+                    or "not found" in m or "no local ImageNet" in m or "not ported" in m]
+        check(not stand_in, f"phase 11: stand-in warnings {stand_in}")
+        lib = loader.obj_lib
+        check(lib.names == REAL_OBJS and lib.n_verts.tolist() == [2048] * 4
+              and lib.textures is not None, f"phase 11: object library {lib.names} with "
+              f"{lib.n_verts.tolist()} vertices (files hold 3072 each, decimated to 2048)")
+        check(loader.assets.backgrounds.shape[0] == 64
+              and loader.assets.hand_textures.shape[0] == len(REAL_HTML_IDS)
+              and loader.grasp_lib.hand_pose.shape[:2] == (4, 50),
+              f"phase 11: {loader.assets.backgrounds.shape[0]} backgrounds, "
+              f"{loader.assets.hand_textures.shape[0]} hand textures, grasps "
+              f"{tuple(loader.grasp_lib.hand_pose.shape)}")
+        file_sd = written["imagenet"]
+        bad = [k for k, v in records["backbone"].items() if not k.endswith("num_batches_tracked")
+               and not torch.equal(v, file_sd[k[len("backbone."):]])]
+        check(records["backbone"] and not bad, f"phase 11: backbone differs from the file: {bad[:3]}")
+        check(launches == {"raster_uv": steps + val_batches, "raster_rgb": 0,
+                           "raster_rgb_binned": 0},
+              f"phase 11 launches {launches}, expected {steps + val_batches} uv, 0 rgb, 0 binned")
+        losses = [v for r in hist for v in r["train"]["final_loss"]]
+        check(all(math.isfinite(v) for v in losses), f"phase 11: non-finite train loss {losses}")
+        w = loader.ccv.sample_weight_map
+        check(not bool(torch.all(w == 1.0)) and float(w.min()) >= 0.1 and float(w.max()) <= 10.0,
+              f"phase 11: weight map [{float(w.min())}, {float(w.max())}] after the reweight")
+        rate = hist[1]["train"]["images"] / hist[1]["train"]["seconds"]
+        geom, decode = (sum(r["train"]["real_host"][i] for r in hist) / steps for i in (0, 1))
+        traces = [os.path.join(tmp, "trace", n) for n in os.listdir(os.path.join(tmp, "trace"))]
+        check(len(traces) == 1, f"phase 11: expected one trace, found {traces}")
+        fig = trace_figures(traces[0])
+        atlas = tuple(loader.synth_batch_fn.atlas.shape)
+        args, kw = records["raster"]
+        del out, loader
+    finally:
+        os.chdir(REPO)
+        train.union_concat, train.load_arch_pretrained = orig["union"], orig["pretrained"]
+        HODataset.device_half, renderer.rasterize_batch_uv = orig["device_half"], orig["raster"]
+        logging.getLogger("artiboost_torch").removeHandler(handler)
+        shutil.rmtree(tmp, ignore_errors=True)  # the experiment directory with it
+    import cv2
+    print(f"phase 11, released recipe on real-layout data ({card}): {n_train} HO3D train and "
+          f"{n_test} evaluation frames at 640x480 (PNG, decoded by OpenCV "
+          f"{cv2.__version__}), written in {t_write:.2f} s; 2 epochs in {wall:.2f} s: {steps} steps of "
+          f"80 real + 48 synth, {val_batches} val batches, 2 TEST passes of 2 batches; launches "
+          f"{launches}; train {rate:.2f} img/s in epoch 1; final_loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; weights [{float(w.min()):.4f}, {float(w.max()):.4f}]; assets loaded "
+          f"from disk: 4 YCB meshes (3072 -> 2048 vertices, textures 1024 -> {lib.textures.shape[1]}), "
+          f"200 grasps, 64 backgrounds, {len(REAL_HTML_IDS)} HTML hands, ImageNet ResNet34 "
+          "(equal to the file before the first step)", flush=True)
+    n_real = max(timer.calls["real batch"], 1)
+    print(f"  real batch of 80, per step over both epochs: host geometry {geom * 1e3:.3f} ms and "
+          f"decode {decode * 1e3:.3f} ms (producer thread and decode pool), upload+warp "
+          f"{timer.seconds['real batch'] * 1e3 / n_real:.3f} ms, the step's wait on the "
+          f"prefetcher {timer.seconds['real wait'] * 1e3 / max(timer.calls['real wait'], 1):.3f} ms",
+          flush=True)
+    for stage in ("dataset init", "pose sweep", "real wait", "real batch", "synth batch",
+                  "train step", "forward", "metric+mining", "test pass"):
+        n = max(timer.calls[stage], 1)
+        print(f"  stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
+              f"{timer.seconds[stage] * 1e3 / n:.3f} ms per call over {timer.calls[stage]} calls")
+    print(f"  trace ({card}), train steps 1-{fig['steps']} of epoch 0, {fig['wall_ms']:.3f} ms: "
+          f"device busy {fig['busy_ms']:.3f} ms, idle share {fig['idle_share']:.4f}; train step "
+          f"wall {fig['step_wall_ms']:.3f} ms, host until its synchronize "
+          f"{fig['step_host_ms']:.3f} ms, device busy {fig['step_device_ms']:.3f} ms", flush=True)
+    inp = prepare_raster(*args, **kw)
+    hold(raster_uv, inp, "phase 11 train batch at the YCB assets")
+    print(f"  raster_uv at the real assets: F={inp.order.shape[-1]} (LOD of the 2048-vertex "
+          f"meshes and the hand), texture atlas {atlas}; stand-in figure of phase 3: "
+          f"{kernels['raster_uv']['ms']:.4f} ms", flush=True)
+    timing(raster_uv, inp, 3, card, torch)
+    del inp
+    return launches
+
+
 def main():
     try:
         import torch
@@ -955,8 +1177,8 @@ def main():
           f"{images / train_s:.2f} train img/s over the train epochs ({train_s:.3f} s); "
           f"final_loss {losses[0]:.6f} -> {losses[-1]:.6f}; launches {launches}; weights "
           f"[{float(w.min()):.4f}, {float(w.max()):.4f}]", flush=True)
-    for stage in ("dataset init", "pose sweep", "real batch", "synth batch", "train step",
-                  "forward", "metric+mining"):
+    for stage in ("dataset init", "pose sweep", "real wait", "real batch", "synth batch",
+                  "train step", "forward", "metric+mining"):
         n = max(timer5.calls[stage], 1)
         print(f"  stage {stage}: {secs[stage] * 1e3:.2f} ms total, "
               f"{secs[stage] * 1e3 / n:.3f} ms per call over {timer5.calls[stage]} calls")
@@ -992,8 +1214,11 @@ def main():
     launches10 = other_recipe(10, "dexycb_clasbased_sym_artiboost", card, read_counts,
                               zero_counts)
 
+    # ---- 11. the released recipe on real-layout data at full width ----
+    launches11 = real_data_recipe(card, kernels, hold, read_counts, zero_counts)
+
     rows = []
-    main_path = {"8": launches8, "9": launches9, "10": launches10}
+    main_path = {"8": launches8, "9": launches9, "10": launches10, "11": launches11}
     for name, src_line, phases in (("raster_uv", 222, main_path),
                                    ("raster_rgb", 201, main_path),
                                    ("raster_rgb_binned", 272, {"6": launches6})):

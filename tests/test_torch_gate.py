@@ -59,12 +59,14 @@ def split_dataset(base, cfg, split):
 
 
 def _jax_gate(path_out, cache_dir, cfg_path=CFG_PATH, epochs=EPOCHS, train_cfg=None,
-              synth_batches=False):
+              synth_batches=False, val=True):
     """Subprocess body: the loop of train_artiboost.py:342-378 on the
     config, every draw recorded, with the measures of every pass and the
     mining state after every epoch; with ``synth_batches`` also every
     synth batch, train and val, in the order they were made. The state is initialised from a zero
-    batch, as in tests/test_torch_train_slice.py."""
+    batch, as in tests/test_torch_train_slice.py. With ``val`` False the
+    config's val gate must be closed: no val sweep, and the mining reads the
+    train pass's evaluator, as ``run`` does then."""
     import jax
     import jax.numpy as jnp
 
@@ -216,10 +218,11 @@ def _jax_gate(path_out, cache_dir, cfg_path=CFG_PATH, epochs=EPOCHS, train_cfg=N
             final.append(float(losses["final_loss"]))
         out[f"{epoch}/train_final_loss"] = np.asarray(final)
         measures(evaluator, f"{epoch}/train")
-        assert loader.should_val(epoch)
-        recorded_prepare(True)
-        key = evaluate(val_batches(), evaluator, key)
-        measures(evaluator, f"{epoch}/val")
+        assert loader.should_val(epoch) == val
+        if val:
+            recorded_prepare(True)
+            key = evaluate(val_batches(), evaluator, key)
+            measures(evaluator, f"{epoch}/val")
         loader.step_eval(epoch, evaluator)
         vm = next(m for m in evaluator.metrics_list if isinstance(m, ValMetricMean3DEPE2))
         avg, seen = vm.get_averaged_maps()
@@ -283,9 +286,9 @@ class ReplaySynthBatches:
 
 
 def run_torch_gate(jax_gate, cfg_path=CFG_PATH, epochs=EPOCHS, train_cfg=None,
-                   synth_batches=False):
+                   synth_batches=False, threads=1):
     """``run`` on the config with the JAX draws replayed from the flax
-    initialisation, at one torch thread; the mining state is copied after
+    initialisation, at ``threads`` torch threads; the mining state is copied after
     every epoch's step_eval. With ``synth_batches`` every synth batch is
     the JAX run's (``ReplaySynthBatches``, kept as ``replay.synth_batches``).
     -> (ref, run's result, states, replay)."""
@@ -315,7 +318,7 @@ def run_torch_gate(jax_gate, cfg_path=CFG_PATH, epochs=EPOCHS, train_cfg=None,
                           "occurrence": self.ccv.occurrence_map.clone()})
 
     n_threads, orig = torch.get_num_threads(), train.ArtiBoostLoader
-    torch.set_num_threads(1)
+    torch.set_num_threads(threads)
     train.ArtiBoostLoader = Loader
     try:
         out = train.run(cfg, epochs=epochs, device="cpu", draws=replay,

@@ -224,16 +224,16 @@ def test_unported_type_raises_with_its_name(kind, tmp_path):
     """A DATASET.TRAIN or CRITERION type that is not ported raises with its
     name; the train pass does not skip it. (A real-data type whose data is
     absent raises FileNotFoundError instead, as the JAX package's does:
-    tests/test_torch_entry.py; here its data directory exists.) Every loss
-    of the JAX package is ported, so the loss case names a type that
-    neither package knows."""
+    tests/test_torch_entry.py.) Every dataset and loss of the JAX package is
+    ported, so both cases name a type that neither package knows; the
+    dataset's data directory exists, so the name is what raises."""
     from artiboost_torch.criterions import build_criterion
     from artiboost_torch.datasets.synthetic import build_dataset
 
     (tmp_path / "HO3D" / "train").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="'HO3D'|'NoSuchLoss'"):
+    with pytest.raises(NotImplementedError, match="'NoSuchDataset'|'NoSuchLoss'"):
         if kind == "dataset":
-            build_dataset({"TYPE": "HO3D", "DATA_SPLIT": "train", "DATA_ROOT": str(tmp_path)}, {},
-                          device="cpu")
+            build_dataset({"TYPE": "NoSuchDataset", "DATA_SPLIT": "train",
+                           "DATA_ROOT": str(tmp_path)}, {}, device="cpu")
         else:
             build_criterion({"CRITERION": [{"TYPE": "NoSuchLoss"}], "LAMBDAS": [1.0]})

@@ -4,7 +4,9 @@ Mirrors the layout of ``artiboost_tpu`` (the JAX reference, which this
 package never imports): ``artiboost/`` (CCV space, pose generation,
 rendering, mining, the loader), ``mano/``, ``models/``, ``ops/`` (the
 rasterizer and its hand-written CUDA kernel under ``csrc/``),
-``metrics/`` and ``utils/``. Entry point: ``python -m artiboost_torch.train``.
+``metrics/``, ``postprocess/`` (IKNet and the MANO fitting unit),
+``submit/`` (the Codalab pass), ``viztools/`` and ``utils/``. Entry points:
+``python -m artiboost_torch.train`` and ``python -m artiboost_torch.submit_reload``.
 
 Conventions: images are NHWC at public functions; every function that
 draws randomness is split into a ``*_draws(generator, ...)`` half and a

@@ -147,10 +147,6 @@ class ArtiBoostLoader:
         rend = cfg.get("RENDERER", {})
         cam = rend.get("CAM_PARAM", {})
         preset = cfg.get("DATA_PRESET", {})
-        if int(rend.get("MOTION_BLUR", 0)) > 1 or not bool(rend.get("TEXTURED", True)) \
-                or bool(rend.get("BILINEAR", False)):
-            raise NotImplementedError("MOTION_BLUR, TEXTURED: false and BILINEAR are "
-                                      "not ported yet")
         self.synth_cfg = SynthConfig(
             image_size=int(preset.get("IMAGE_SIZE", [224, 224])[0]),
             raw_size=int(rend.get("RENDER_SIZE", [512, 512])[0]),
@@ -161,9 +157,13 @@ class ArtiBoostLoader:
             bbox_expand_ratio=float(preset.get("BBOX_EXPAND_RATIO", 1.2)),
             cull_backfaces=bool(rend.get("CULL_BACKFACES", True)),
             lod_faces=int(rend.get("LOD_FACES", -1)),
+            textured=bool(rend.get("TEXTURED", True)),
+            bilinear=bool(rend.get("BILINEAR", False)),
             tex_subsample=int(rend.get("TEX_SUBSAMPLE", 2)),
             image_bf16=bool(rend.get("IMAGE_BF16", True)),
-            render_scale=rend.get("RENDER_SCALE"))
+            render_scale=rend.get("RENDER_SCALE"),
+            motion_blur=int(rend.get("MOTION_BLUR", 0)),
+            motion_blur_prob=float(rend.get("MOTION_BLUR_PROB", 1.0)))
         self.assets = default_render_assets(self.mano_model, bgs_path=rend.get("BGS_PATH"),
                                             html_path=rend.get("HTML_PATH", "data/HTML_supp"),
                                             device=self.device)

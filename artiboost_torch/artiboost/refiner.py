@@ -14,7 +14,6 @@ from __future__ import annotations
 import os
 from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -137,26 +136,12 @@ def make_ho_refiner(mano_model: ManoModel, net: RefineNet, n_iters: int = 3) -> 
     return refine
 
 
-def load_refiner_params(path: str) -> Dict:
-    """A flat npz of flax params (``save_refiner_params``: keys joined by
-    '/') -> the nested dict of numpy arrays."""
-    nested: Dict = {}
-    with np.load(path) as blob:
-        for key in blob.files:
-            node = nested
-            *scope, leaf = key.split("/")
-            for s in scope:
-                node = node.setdefault(s, {})
-            node[leaf] = blob[key]
-    return nested
-
-
 def build_refiner(cfg: Dict, mano_model: ManoModel, device=None) -> Callable:
     """cfg: {"TYPE": "null" | "hand_obj", "ITERS": 3, "PRETRAINED": path}.
     The weights, in the JAX package's order: the configured ``.npz``; else
     ``assets/refinenet_tpu.npz`` when the configured file is absent or
     none is configured; else the identity refiner, with a warning."""
-    from artiboost_torch.utils.convert import refinenet_from_flax
+    from artiboost_torch.utils.convert import load_flax_npz, refinenet_from_flax
 
     kind = cfg.get("TYPE", "null")
     if kind in (None, "null"):
@@ -170,7 +155,7 @@ def build_refiner(cfg: Dict, mano_model: ManoModel, device=None) -> Callable:
         logger.info(f"refiner: {pretrained or 'no PRETRAINED'} absent; using {fallback}")
         pretrained = fallback
     if pretrained and str(pretrained).endswith(".npz") and os.path.isfile(pretrained):
-        loaded = load_refiner_params(pretrained)
+        loaded = load_flax_npz(pretrained)
         net.load_state_dict(refinenet_from_flax(loaded.get("params", loaded)))
         logger.info(f"refiner: loaded {pretrained}")
     else:

@@ -4,10 +4,9 @@ of ``artiboost_tpu/artiboost/renderer.py``; reference
 asset banks (backgrounds and HTML hand textures loaded from disk, or
 synthetic stand-ins), scene composition and render LOD, Lambert shade,
 the per-pixel UV raster and the Gouraud raster (kernels in
-``ops/rasterizer_cuda.py``), the texel gather, the background composite,
-blur and colour jitter.
-
-Queued: motion blur."""
+``ops/rasterizer_cuda.py``), the texel gather (nearest or bilinear), the
+horizontal motion blur, the background composite, blur and colour
+jitter."""
 from __future__ import annotations
 
 import os
@@ -377,8 +376,12 @@ def _atlas_rows(atlas: torch.Tensor) -> Tuple[torch.Tensor, int]:
 
 
 def sample_textures(uv_packed: torch.Tensor, shade: torch.Tensor, page: torch.Tensor,
-                    tex: SceneTextures, subsample: int = 1) -> torch.Tensor:
-    """Nearest-texel gather + shade multiply -> rgb (B, H, W, 3).
+                    tex: SceneTextures, bilinear: bool = False, subsample: int = 1
+                    ) -> torch.Tensor:
+    """Texel gather + shade multiply -> rgb (B, H, W, 3): the nearest
+    texel, or with ``bilinear`` the blend of the 2 x 2 texels around the
+    sample (columns x0 and x0 + 1 of rows y0 and y0 + 1, each unpacked
+    from rgb888, x0 and y0 clipped to T - 2).
 
     ``subsample`` s > 1 fetches albedo once per s x s quad, picking the
     quad's max (page, uv) pack so a silhouette quad takes a foreground
@@ -399,18 +402,50 @@ def sample_textures(uv_packed: torch.Tensor, shade: torch.Tensor, page: torch.Te
     fl = torch.floor(uv_packed * (1.0 / 4096.0))
     u = fl * (1.0 / 4095.0)
     v = (uv_packed - fl * 4096.0) * (1.0 / 4095.0)
-    ix = torch.round(u * (T - 1)).long().reshape(-1)
-    iy = torch.round((1.0 - v) * (T - 1)).long().reshape(-1)
-    win = torch.clamp(torch.div(ix, 127, rounding_mode="floor"), max=n_win - 1)
-    row = (page.reshape(-1).long() * T + iy) * n_win + win
-    qv = rows[row, ix - win * 127]
-    r8 = torch.floor(qv * (1.0 / 65536.0))
-    g8 = torch.floor((qv - r8 * 65536.0) * (1.0 / 256.0))
-    b8 = qv - r8 * 65536.0 - g8 * 256.0
-    albedo = torch.stack([r8, g8, b8], -1).reshape(page.shape + (3,)) * (1.0 / 255.0)
+    tx, ty = u * (T - 1), (1.0 - v) * (T - 1)
+    pflat = page.reshape(-1).long()
+
+    def fetch(iy, ix):  # the packed texel at (row iy, column ix) of each pixel's page
+        win = torch.clamp(torch.div(ix, 127, rounding_mode="floor"), max=n_win - 1)
+        return rows[(pflat * T + iy) * n_win + win, ix - win * 127]
+
+    def unpack(qv):
+        r8 = torch.floor(qv * (1.0 / 65536.0))
+        g8 = torch.floor((qv - r8 * 65536.0) * (1.0 / 256.0))
+        return torch.stack([r8, g8, qv - r8 * 65536.0 - g8 * 256.0], -1)
+
+    if not bilinear:
+        albedo = unpack(fetch(torch.round(ty).long().reshape(-1),
+                              torch.round(tx).long().reshape(-1)))
+    else:
+        x0 = torch.clamp(torch.floor(tx).long(), 0, T - 2)
+        y0 = torch.clamp(torch.floor(ty).long(), 0, T - 2)
+        wx = torch.clamp(tx - x0, 0.0, 1.0).reshape(-1, 1)
+        wy = torch.clamp(ty - y0, 0.0, 1.0).reshape(-1, 1)
+        x0, y0 = x0.reshape(-1), y0.reshape(-1)
+
+        def blend_row(iy):
+            return (1.0 - wx) * unpack(fetch(iy, x0)) + wx * unpack(fetch(iy, x0 + 1))
+
+        albedo = (1.0 - wy) * blend_row(y0) + wy * blend_row(y0 + 1)
+    albedo = albedo.reshape(page.shape + (3,)) * (1.0 / 255.0)
     if subsample > 1:
         albedo = albedo.repeat_interleave(subsample, 1).repeat_interleave(subsample, 2)
     return torch.clamp(albedo * shade[..., None], 0.0, 1.0)
+
+
+def motion_blur_h(img: torch.Tensor, k: int) -> torch.Tensor:
+    """Horizontal box blur of width k, edge-padded, (B, H, W, 3): the
+    reference's motion-blur kernel is a centred horizontal line of ones / k
+    (``anakin/utils/renderer.py:32-37``)."""
+    r = k // 2
+    W = img.shape[2]
+    pad = torch.cat([img[:, :, :1].expand(-1, -1, r, -1), img,
+                     img[:, :, -1:].expand(-1, -1, k - 1 - r, -1)], dim=2)
+    out = pad[:, :, 0:W]
+    for i in range(1, k):
+        out = out + pad[:, :, i:i + W]
+    return out * (1.0 / k)
 
 
 def background_grid(n_bg_h: int, n_bg_w: int, height: int, width: int):
@@ -421,13 +456,18 @@ def background_grid(n_bg_h: int, n_bg_w: int, height: int, width: int):
 
 
 def render_draws(generator: torch.Generator, B: int, n_bg: int, n_grid: int,
-                 device=None) -> Dict[str, torch.Tensor]:
+                 device=None, motion_blur: bool = False) -> Dict[str, torch.Tensor]:
     """Random half of ``render_scene``: light intensity U(1, 5) (B, 1),
-    background grid cell and background id (B,)."""
+    background grid cell and background id (B,), and with ``motion_blur``
+    then a U(0, 1) draw (B,) that ``motion_blur_prob`` thresholds (drawn
+    last, so the other draws do not depend on the option)."""
     device = resolve_device(device)
-    return {"light": torch.rand(B, 1, generator=generator, device=device) * 4.0 + 1.0,
-            "bg_pos": torch.randint(0, n_grid, (B,), generator=generator, device=device),
-            "bg_id": torch.randint(0, n_bg, (B,), generator=generator, device=device)}
+    out = {"light": torch.rand(B, 1, generator=generator, device=device) * 4.0 + 1.0,
+           "bg_pos": torch.randint(0, n_grid, (B,), generator=generator, device=device),
+           "bg_id": torch.randint(0, n_bg, (B,), generator=generator, device=device)}
+    if motion_blur:
+        out["mb"] = torch.rand(B, generator=generator, device=device)
+    return out
 
 
 def render_scene(verts: torch.Tensor, colors: torch.Tensor, faces: torch.Tensor,
@@ -435,13 +475,17 @@ def render_scene(verts: torch.Tensor, colors: torch.Tensor, faces: torch.Tensor,
                  draws: Dict[str, torch.Tensor], height: int, width: int,
                  ambient: float = 0.8, cull_backfaces: bool = True,
                  incidence: Optional[torch.Tensor] = None,
-                 texturing: Optional[SceneTextures] = None, tex_subsample: int = 1,
+                 texturing: Optional[SceneTextures] = None, bilinear: bool = False,
+                 tex_subsample: int = 1, motion_blur: int = 0, motion_blur_prob: float = 1.0,
                  out_size: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shade + rasterize + composite -> (rgb (B, H, W, 3), depth). With
     ``texturing`` the UV kernel interpolates (u, v, shade, page) and the
     texels are gathered after it; without, the vertices are Gouraud-shaded
-    and the rgb kernel interpolates their colours."""
+    and the rgb kernel interpolates their colours. ``motion_blur`` k > 1
+    blurs the raw render of each sample whose ``draws["mb"]`` is below
+    ``motion_blur_prob`` by a horizontal box of width k, before the
+    upsample and the background composite (reference renderer.py:113-116)."""
     light_int = draws["light"] * 0.05
     if incidence is not None:
         normals = vertex_normals_indexed(verts, faces, incidence)
@@ -457,12 +501,17 @@ def render_scene(verts: torch.Tensor, colors: torch.Tensor, faces: torch.Tensor,
         attrs = torch.cat([texturing.uv, s[..., None], vp[..., None]], dim=-1)
         quv, sh, pg, _win, depth = rasterize_batch_uv(vs, attrs, faces, face_valid, height,
                                                       width, cull_backfaces=cull_backfaces)
-        rgb = sample_textures(quv, sh, pg, texturing, subsample=tex_subsample)
+        rgb = sample_textures(quv, sh, pg, texturing, bilinear=bilinear,
+                              subsample=tex_subsample)
     else:
         shaded = shade_vertices(verts, normals, colors, ambient, light_pos, light_int,
                                 torch.ones((1, 3), device=verts.device))
         rgb, depth = rasterize_batch_rgb(vs, shaded, faces, face_valid, height, width,
                                          cull_backfaces=cull_backfaces)
+
+    if motion_blur > 1:
+        apply = draws["mb"] < motion_blur_prob
+        rgb = torch.where(apply[:, None, None, None], motion_blur_h(rgb, motion_blur), rgb)
 
     if out_size is not None and tuple(out_size) != (height, width):
         oh, ow = out_size

@@ -3,7 +3,10 @@
 ``anakin/artiboost/rendered_dataset.py`` __getitem__ :155-274): crop
 around hand/object folded into the camera (render-at-crop), quad-rate
 foreground raster, visibility >= 40 % rules, blur / colour jitter,
-normalization and the Queries/SynthQueries sample schema."""
+normalization and the Queries/SynthQueries sample schema. The foreground
+is textured per pixel (the uv raster, then the texel gather) when
+``textured`` is set and every texture asset exists, as in JAX; otherwise
+its vertices carry the colour banks and the Gouraud raster draws it."""
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
@@ -51,8 +54,12 @@ class SynthConfig(NamedTuple):
     scale_jit: float = 0.1
     max_rot: float = 0.2
     blur_max_sigma: float = 1.0
+    motion_blur: int = 0           # width of the horizontal box blur; 0: off
+    motion_blur_prob: float = 1.0  # the share of samples it blurs
     cull_backfaces: bool = True
     lod_faces: int = -1        # -1 auto: 128 per component at <= 256 px, else off
+    textured: bool = True      # per-pixel UV texturing where every texture asset exists
+    bilinear: bool = False     # bilinear texel gather (else nearest)
     tex_subsample: int = 2     # albedo fetched once per s x s quad
     image_bf16: bool = False   # the loader passes its default True
     render_scale: Optional[int] = None  # None auto: 2 when the crop divides
@@ -83,17 +90,18 @@ class SynthBatch:
         H = W = cfg.image_size
         self.raw_intr = torch.tensor([[cfg.fx, 0.0, cfg.cx], [0.0, cfg.fy, cfg.cy],
                                       [0.0, 0.0, 1.0]], device=self.device)
-        if (assets.hand_textures is None or assets.hand_uvs is None or obj_lib.textures is None
-                or obj_lib.uvs is None):
-            raise NotImplementedError("an asset without a texture takes the Gouraud synth "
-                                      "route (TEXTURED: false), which is not ported yet")
-        hand_texs = assets.hand_textures.cpu().numpy()
-        obj_texs = obj_lib.textures.cpu().numpy()
-        T = max(hand_texs.shape[1], obj_texs.shape[1])
-        self.atlas = torch.as_tensor(np.stack(
-            [_resize_tex(t, T) for t in hand_texs] + [_resize_tex(t, T) for t in obj_texs]
-        )).to(self.device)
-        self.n_hand_tex = hand_texs.shape[0]
+        self.textured = (cfg.textured and assets.hand_textures is not None
+                         and assets.hand_uvs is not None and obj_lib.textures is not None
+                         and obj_lib.uvs is not None)
+        self.atlas, self.n_hand_tex = None, 0
+        if self.textured:
+            hand_texs = assets.hand_textures.cpu().numpy()
+            obj_texs = obj_lib.textures.cpu().numpy()
+            T = max(hand_texs.shape[1], obj_texs.shape[1])
+            self.atlas = torch.as_tensor(np.stack(
+                [_resize_tex(t, T) for t in hand_texs] + [_resize_tex(t, T) for t in obj_texs]
+            )).to(self.device)
+            self.n_hand_tex = hand_texs.shape[0]
 
         lod_faces = cfg.lod_faces
         if lod_faces < 0:
@@ -103,8 +111,8 @@ class SynthBatch:
         if lod_faces > 0:
             self.lod = build_scene_lod(
                 mano_model.v_template.cpu().numpy(), assets.hand_faces.cpu().numpy(),
-                assets.hand_color_bank, obj_lib, lod_faces, hand_uv_bank=assets.hand_uvs,
-                device=self.device)
+                assets.hand_color_bank, obj_lib, lod_faces,
+                hand_uv_bank=assets.hand_uvs if self.textured else None, device=self.device)
             logger.info(f"render LOD: hand {assets.hand_faces.shape[0]} -> "
                         f"{self.lod.hand_faces.shape[0]} faces, objects "
                         f"{obj_lib.faces.shape[1]} -> {self.lod.obj_faces.shape[1]} "
@@ -130,7 +138,7 @@ class SynthBatch:
             "tex_id": torch.randint(0, self.assets.hand_color_bank.shape[0], (B,),
                                     generator=generator, device=dev),
             "render": render_draws(generator, B, self.assets.backgrounds.shape[0],
-                                   self.n_bg_grid, dev),
+                                   self.n_bg_grid, dev, motion_blur=cfg.motion_blur > 1),
             "sigma": torch.rand(B, generator=generator, device=dev),
             "jitter": color_jitter_draws(generator, B, dev),
         }
@@ -192,21 +200,25 @@ class SynthBatch:
                 lod.obj_verts[oid], lod.obj_colors[oid], lod.obj_faces[oid],
                 lod.obj_face_valid[oid], obj_pose_r)
             inc = None if lod.incidence is None else lod.incidence[oid]
-            uv = torch.cat([lod.hand_uv_bank[tex_id], lod.obj_uvs[oid]], dim=1)
-            n_hand_faces, n_hand_verts = lod.hand_faces.shape[0], lod.hand_uv_bank.shape[1]
+            if self.textured:
+                uv = torch.cat([lod.hand_uv_bank[tex_id], lod.obj_uvs[oid]], dim=1)
+                n_hand_faces, n_hand_verts = lod.hand_faces.shape[0], lod.hand_uv_bank.shape[1]
         else:
             verts, colors, faces, fvalid = compose_scene_arrays(
                 hand_verts_r, self.assets.hand_color_bank[tex_id], self.assets.hand_faces,
                 lib.verts[oid], lib.colors[oid], lib.faces[oid], lib.face_valid[oid],
                 obj_pose_r)
             inc = None if self.scene_inc is None else self.scene_inc[oid]
-            uv = torch.cat([self.assets.hand_uvs[tex_id], lib.uvs[oid]], dim=1)
-            n_hand_faces = self.assets.hand_faces.shape[0]
-            n_hand_verts = self.assets.hand_uvs.shape[1]
-        texturing = SceneTextures(atlas=self.atlas, hand_page=tex_id,
-                                  obj_page=self.n_hand_tex + oid, uv=uv,
-                                  n_hand_faces=int(n_hand_faces),
-                                  n_hand_verts=int(n_hand_verts))
+            if self.textured:
+                uv = torch.cat([self.assets.hand_uvs[tex_id], lib.uvs[oid]], dim=1)
+                n_hand_faces = self.assets.hand_faces.shape[0]
+                n_hand_verts = self.assets.hand_uvs.shape[1]
+        texturing = None
+        if self.textured:
+            texturing = SceneTextures(atlas=self.atlas, hand_page=tex_id,
+                                      obj_page=self.n_hand_tex + oid, uv=uv,
+                                      n_hand_faces=int(n_hand_faces),
+                                      n_hand_verts=int(n_hand_verts))
 
         rs = self.rs
         if rs > 1:
@@ -220,7 +232,8 @@ class SynthBatch:
         img, _depth = render_scene(
             verts, colors, faces, fvalid, render_intr, self.assets.backgrounds,
             draws["render"], rH, rW, cull_backfaces=cfg.cull_backfaces, incidence=inc,
-            texturing=texturing, tex_subsample=cfg.tex_subsample,
+            texturing=texturing, bilinear=cfg.bilinear, tex_subsample=cfg.tex_subsample,
+            motion_blur=cfg.motion_blur, motion_blur_prob=cfg.motion_blur_prob,
             out_size=(H, W) if rs > 1 else None)
 
         if cfg.image_bf16:

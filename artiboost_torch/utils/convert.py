@@ -146,8 +146,38 @@ def honet_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def iknet_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """IKNet's flax variables (``Dense_0``-``Dense_5`` with ``BatchNorm_0``-
+    ``BatchNorm_5``, then the quaternion head ``Dense_6``) -> the state
+    dict of ``artiboost_torch.postprocess.iknet.IKNet``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    n = sum(1 for name in params if name.startswith("BatchNorm_"))
+    for i in range(n):
+        _dense(sd, f"dense.{i}", params[f"Dense_{i}"])
+        _bn(sd, f"bn.{i}", params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"])
+    _dense(sd, "head", params[f"Dense_{n}"])
+    return sd
+
+
 FROM_FLAX = {"HybridBaseline": hybrid_baseline_from_flax, "HOPRegNet": hopregnet_from_flax,
-             "HoNet": honet_from_flax, "SimpleBaseline": simple_baseline_from_flax}
+             "HoNet": honet_from_flax, "SimpleBaseline": simple_baseline_from_flax,
+             "IKNet": iknet_from_flax}
+
+
+def load_flax_npz(path: str) -> Dict:
+    """A flat npz of flax variables (keys joined by '/', as the JAX
+    package's ``save_refiner_params`` and ``save_iknet_params`` write
+    them) -> the nested dict of numpy arrays."""
+    nested: Dict = {}
+    with np.load(path) as blob:
+        for key in blob.files:
+            node = nested
+            *scope, leaf = key.split("/")
+            for s in scope:
+                node = node.setdefault(s, {})
+            node[leaf] = blob[key]
+    return nested
 
 
 def _layer_norm(sd: Dict, prefix: str, p: Dict):

@@ -110,13 +110,15 @@ def _save_npz(path: str, state: Dict) -> None:
 class Recorder:
     def __init__(self, exp_id: str, cfg: Dict, root: str = "exp",
                  resume_path: Optional[str] = None, timestamp: Optional[str] = None,
-                 allow_dirty: bool = False):
+                 allow_dirty: bool = False, eval_only: bool = False):
         """A named experiment (any ``exp_id`` but ``default`` and
         ``smoke``) must run from a clean commit unless ``allow_dirty``;
         without a commit it warns. ``resume_path`` reuses an experiment
-        directory and keeps its ``dump_cfg.yaml``."""
+        directory and keeps its ``dump_cfg.yaml``. ``eval_only`` records an
+        evaluation: ``<root>/eval_<exp_id>_<timestamp>/`` with no
+        ``checkpoints/`` and no commit check."""
         self.exp_id, self.cfg = exp_id, cfg
-        if exp_id not in ("default", "smoke"):
+        if not eval_only and exp_id not in ("default", "smoke"):
             commit = _git_commit()
             if commit is None:
                 logger.warning(f"exp '{exp_id}' started without a git commit: the run "
@@ -132,10 +134,12 @@ class Recorder:
             else:
                 logger.info(f"exp '{exp_id}' @ git {commit[:12]}")
         ts = timestamp or time.strftime("%Y_%m%d_%H%M_%S")
-        self.dump_path = resume_path or os.path.join(root, f"{exp_id}_{ts}")
+        prefix = "eval_" if eval_only else ""
+        self.dump_path = resume_path or os.path.join(root, f"{prefix}{exp_id}_{ts}")
         self.ckpt_dir = os.path.abspath(os.path.join(self.dump_path, "checkpoints"))
         self.eval_dir = os.path.join(self.dump_path, "evaluations")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if not eval_only:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         os.makedirs(self.eval_dir, exist_ok=True)
         self._log = logging.FileHandler(os.path.join(self.dump_path, "log.txt"))
         self._log.setFormatter(logging.Formatter("%(asctime)s | %(levelname)s | %(message)s"))

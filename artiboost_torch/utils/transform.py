@@ -182,3 +182,9 @@ def get_affine_trans_no_rot(center: torch.Tensor, scale: torch.Tensor, res) -> t
 def center_vert_bbox(vertices: np.ndarray):
     """Center mesh vertices on their bbox center (host numpy)."""
     return vertices - (vertices.min(0) + vertices.max(0)) / 2
+
+
+# MANO FK emits [wrist, 4 x index, 4 x middle, 4 x pinky, 4 x ring, 4 x thumb]
+# and the tips; this permutation gives the conventional 21-keypoint order,
+# and the HO3D Codalab dump takes its inverse (``submit/epoch_pass.py``)
+MANO_TO_OPENPOSE_ORDER = [0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20]

@@ -94,12 +94,33 @@ Phases, each fatal on failure:
      val batch, no rgb, no binned); it prints the real batch's host
      geometry and decode, upload+warp and the step's wait on the
      prefetcher, the stages, the trace's idle share, and B1 held against
-     its twin and timed on a train batch at these assets (F, atlas).
-Every launch counter is zeroed just before phases 4 to 11 and read just
-after each. TF32 is off. The lines before the last: the kernel table as one
-JSON object (B1 and B2 launches from phases 8 to 11, summed and by phase,
-B3 launches from phase 6) and the card's name and power limit; the last
-line: the ok JSON.
+     its twin and timed on a train batch at these assets (F, atlas). Its
+     directory and last checkpoint are kept for phase 13.
+ 12. the synth options at full width: ``artiboost_torch.train.main`` on the
+     released config, synth-only (CONFIG_LEN_TRAIN 512: 4 steps of 128,
+     VAL_LEN 128, 1 epoch, no TEST pass), twice: with RENDERER.TEXTURED
+     false, MOTION_BLUR 7 at MOTION_BLUR_PROB 0.5 and the random_2
+     scrambler (5 rgb launches, no uv; one synth batch held bit-equal
+     against B2's twin and timed; the blur changed the foreground of
+     exactly the images its draw picked), then with BILINEAR and random_3
+     (5 uv launches, no rgb); finite losses; per-stage ms and train img/s;
+ 13. the submission entry point: ``artiboost_torch.submit_reload.main`` on
+     config_eval/eval_ho3dv2_clasbased_artiboost.yaml (ResNet34, 224x224,
+     batch 128) with DATA_ROOT at phase 11's files, ``--reload`` of its
+     last checkpoint, ``--submit_dump --postprocess_fit_mesh
+     --postprocess_draw``: HO3D v2's 160 evaluation frames in a batch of
+     128 and a tail padded from 32. It checks the Codalab JSON (160 joint
+     lists of 21 x 3, 160 vert lists of 778 x 3) and its zip (one deflated
+     member under the basename), the fitted meshes finite and nearer the
+     predicted joints than IKNet's warm start, the two overlay PNGs, one B2
+     launch an overlay tile (32), finite measures; the first tile's raster
+     held against B2's twin and timed; it prints the eval pass's, the
+     FittingUnit's and the draw's ms per batch of 128.
+Every launch counter is zeroed just before phases 4 to 11 and 13 and each
+run of phase 12, and read just after each. TF32 is off. The lines before
+the last: the kernel table as one JSON object (B1 launches from phases 8 to
+12, B2 from 8 to 13, summed and by phase, B3 launches from phase 6) and the
+card's name and power limit; the last line: the ok JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
 """
@@ -731,15 +752,16 @@ def write_real_layout(root: str, repo_cfg) -> dict:
     return {"data": data, "n_train": n_train, "n_test": n_test, "imagenet": sd}
 
 
-def real_data_recipe(card: str, kernels: dict, hold, read_counts, zero_counts) -> dict:
+def real_data_recipe(card: str, kernels: dict, hold, read_counts, zero_counts, tmp: str):
     """Phase 11: ``artiboost_torch.train.main`` on the released recipe with
-    its data on disk (``write_real_layout`` in a temporary working
-    directory), the config unchanged but DATA_ROOT, EVAL_FREQ 1 and
+    its data on disk (``write_real_layout`` in the working directory
+    ``tmp``), the config unchanged but DATA_ROOT, EVAL_FREQ 1 and
     VAL_START_EPOCH 0: 2 epochs of 6 mixed steps (80 HO3D + 48 synth), the
     val sweep of the released VAL_LEN, a TEST pass over the 160 evaluation
     frames after each epoch, a trace of epoch 0 through step 6. Holds B1 on
-    a train batch at these assets against its twin and times it. Everything
-    it writes is removed. -> the launches of the run."""
+    a train batch at these assets against its twin and times it. The caller
+    removes ``tmp``. -> (the launches of the run, {"root", "data", "ckpt"
+    (the run's last checkpoint), "n_test"} for phase 13)."""
     import logging
 
     import torch
@@ -753,7 +775,6 @@ def real_data_recipe(card: str, kernels: dict, hold, read_counts, zero_counts) -
 
     cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
     cfg["TRAIN"].update(EVAL_FREQ=1, VAL_START_EPOCH=0)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_real_")
     records = {"parts": [], "test_idx": [], "backbone": None, "raster": None, "warnings": []}
     orig = {"union": train.union_concat, "pretrained": train.load_arch_pretrained,
             "device_half": HODataset.device_half, "raster": renderer.rasterize_batch_uv}
@@ -853,13 +874,15 @@ def real_data_recipe(card: str, kernels: dict, hold, read_counts, zero_counts) -
         fig = trace_figures(traces[0])
         atlas = tuple(loader.synth_batch_fn.atlas.shape)
         args, kw = records["raster"]
+        real = {"root": tmp, "data": written["data"], "n_test": n_test,
+                "ckpt": os.path.join(tmp, out["dump_path"], "checkpoints", "latest.pt")}
+        check(os.path.isfile(real["ckpt"]), f"phase 11 left no checkpoint at {real['ckpt']}")
         del out, loader
     finally:
         os.chdir(REPO)
         train.union_concat, train.load_arch_pretrained = orig["union"], orig["pretrained"]
         HODataset.device_half, renderer.rasterize_batch_uv = orig["device_half"], orig["raster"]
         logging.getLogger("artiboost_torch").removeHandler(handler)
-        shutil.rmtree(tmp, ignore_errors=True)  # the experiment directory with it
     import cv2
     print(f"phase 11, released recipe on real-layout data ({card}): {n_train} HO3D train and "
           f"{n_test} evaluation frames at 640x480 (PNG, decoded by OpenCV "
@@ -892,6 +915,253 @@ def real_data_recipe(card: str, kernels: dict, hold, read_counts, zero_counts) -
           f"{kernels['raster_uv']['ms']:.4f} ms", flush=True)
     timing(raster_uv, inp, 3, card, torch)
     del inp
+    return launches, real
+
+
+def synth_options(card: str, hold, read_counts, zero_counts) -> dict:
+    """Phase 12: ``artiboost_torch.train.main`` on the released Clas recipe at
+    full width, synth-only (CONFIG_LEN_TRAIN 512: 4 steps of 128, VAL_LEN
+    128, 1 epoch, no TEST pass), twice: run a with RENDERER.TEXTURED false
+    (the Gouraud route, kernel B2 for every synthetic image), MOTION_BLUR 7
+    at MOTION_BLUR_PROB 0.5 and the ``random_2`` scrambler; run b with
+    BILINEAR (kernel B1 and the bilinear gather) and ``random_3``. Holds B2
+    on run a's first synth batch against its twin and checks that the blur
+    changed the foreground of exactly the images its draw picked. Everything
+    it writes is removed. -> the launches of both runs, summed."""
+    import torch
+    import yaml
+
+    from artiboost_torch import train
+    from artiboost_torch.artiboost import renderer, synth_batch
+    from artiboost_torch.ops.rasterizer_cuda import prepare_raster, raster_rgb
+    from artiboost_torch.utils.config import load_config
+
+    runs = {"a": ({"TEXTURED": False, "MOTION_BLUR": 7, "MOTION_BLUR_PROB": 0.5}, "random_2"),
+            "b": ({"BILINEAR": True}, "random_3")}
+    total = {}
+    for name, (options, scrambler) in runs.items():
+        cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
+        cfg["MANAGER"].update(CONFIG_LEN_TRAIN=512, VAL_LEN=128)
+        cfg["MANAGER"]["RENDERER"].update(options)
+        cfg["MANAGER"]["SCRAMBLER"]["TYPE"] = scrambler
+        cfg["TRAIN"].update(EVAL_FREQ=1, VAL_START_EPOCH=0)
+        rec = {"raster": None, "blur": None}
+        orig = {"raster": renderer.rasterize_batch_rgb, "blur": renderer.motion_blur_h,
+                "scene": synth_batch.render_scene}
+
+        def raster(*args, **kw):
+            if rec["raster"] is None:
+                rec["raster"] = (args, kw)
+            return orig["raster"](*args, **kw)
+
+        def blur(img, k):
+            out = orig["blur"](img, k)
+            if rec["blur"] is None:
+                rec["blur"] = {"raw": img.clone()}
+            return out
+
+        def scene(*args, **kw):
+            rgb, depth = orig["scene"](*args, **kw)
+            if rec["blur"] is not None and "out" not in rec["blur"]:
+                rec["blur"].update(mb=args[6]["mb"].clone(), out=rgb.clone(), depth=depth.clone())
+            return rgb, depth
+
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_options_{name}_")
+        dump = None
+        renderer.rasterize_batch_rgb, renderer.motion_blur_h = raster, blur
+        synth_batch.render_scene = scene
+        try:
+            cfg_path = os.path.join(tmp, "options.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            zero_counts()
+            t0 = time.perf_counter()
+            out = train.main(["--cfg", cfg_path, "--exp_id", f"smoke12{name}", "--epochs", "1",
+                              "--test_freq", "0"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            dump = out["dump_path"]
+            hist, loader, timer = out["history"], out["loader"], out["timer"]
+            sc = loader.synth_cfg
+            check(out["train_data"] is None and loader._mixed_counts() == (0, 128)
+                  and len(loader) == 4, f"phase 12{name} did not train synth-only, 4 steps of 128")
+            check((sc.textured, sc.bilinear, sc.motion_blur, loader.synth_batch_fn.textured)
+                  == (name == "b", name == "b", 7 if name == "a" else 0, name == "b"),
+                  f"phase 12{name}: options not in force: {sc}")
+            steps = hist[0]["train"]["steps"]
+            val_batches = hist[0].get("val", {}).get("batches", 0)
+            check(steps == 4 and val_batches == 1,
+                  f"phase 12{name}: {steps} train steps, {val_batches} val batches")
+            want = {"raster_uv": 0 if name == "a" else steps + val_batches,
+                    "raster_rgb": steps + val_batches if name == "a" else 0,
+                    "raster_rgb_binned": 0}
+            check(launches == want, f"phase 12{name} launches {launches}, expected {want}")
+            losses = hist[0]["train"]["final_loss"]
+            check(all(math.isfinite(v) for v in losses), f"phase 12{name}: non-finite loss {losses}")
+            lm = hist[0]["val"]["measures"]["LossesMetric"]
+            check(math.isfinite(lm["final_loss"]), f"phase 12{name}: val losses {lm}")
+            rate = hist[0]["train"]["images"] / hist[0]["train"]["seconds"]
+            del out, loader
+        finally:
+            renderer.rasterize_batch_rgb, renderer.motion_blur_h = orig["raster"], orig["blur"]
+            synth_batch.render_scene = orig["scene"]
+            shutil.rmtree(tmp, ignore_errors=True)
+            if dump:
+                shutil.rmtree(dump, ignore_errors=True)
+        detail = ""
+        if name == "a":
+            args, kw = rec["raster"]
+            inp = prepare_raster(*args, **kw)
+            hold(raster_rgb, inp, f"phase 12a synth batch (untextured, B={inp.geom.shape[0]} at "
+                                  f"{inp.height}x{inp.width})")
+            timing(raster_rgb, inp, 3, card, torch)
+            del inp
+            b = rec["blur"]
+            ry = b["out"].shape[1] // b["raw"].shape[1]
+            up = b["raw"].repeat_interleave(ry, 1).repeat_interleave(ry, 2)
+            fg = b["depth"] > 0
+            changed = ((b["out"] != up).any(-1) & fg).flatten(1).any(1)
+            picked = b["mb"] < 0.5
+            has_fg = fg.flatten(1).any(1)
+            check(not bool(changed[~picked].any()) and bool(changed[picked & has_fg].all())
+                  and 0.3 <= float(picked.float().mean()) <= 0.7,
+                  f"phase 12a: the blur changed {int(changed.sum())} foregrounds, its draw "
+                  f"picked {int(picked.sum())} of {picked.numel()} images")
+            detail = (f"; the blur changed the foreground of the {int(picked.sum())} of "
+                      f"{picked.numel()} images its draw picked, and of no other")
+        print(f"phase 12{name}, {options} scrambler {scrambler} ({card}): synth-only, 1 epoch in "
+              f"{wall:.2f} s: {steps} steps of 128, {val_batches} val batch; launches {launches}; "
+              f"train {rate:.2f} img/s in epoch 0 (its first steps included); final_loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}{detail}", flush=True)
+        for stage in ("pose sweep", "synth batch", "train step", "forward"):
+            n = max(timer.calls[stage], 1)
+            print(f"  stage {stage}: {timer.seconds[stage] * 1e3 / n:.3f} ms per call over "
+                  f"{timer.calls[stage]} calls")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    return total
+
+
+def submission(card: str, real: dict, hold, read_counts, zero_counts) -> dict:
+    """Phase 13: ``artiboost_torch.submit_reload.main`` on the released
+    evaluation config (config_eval/eval_ho3dv2_clasbased_artiboost.yaml:
+    ResNet34 at 224 x 224, batch 128) with DATA_ROOT at phase 11's files and
+    ``--reload`` of phase 11's last checkpoint, ``--submit_dump
+    --postprocess_fit_mesh --postprocess_draw``: HO3D v2's evaluation split
+    of 160 frames, one full batch and a tail padded from 32. Checks the
+    Codalab JSON and zip, the fitted meshes against IKNet's warm start, the
+    overlays (kernel B2, one launch a tile; the first tile's raster held
+    against B2's twin and timed), the recorded measures. -> the launches of
+    the run."""
+    import zipfile
+
+    import torch
+    import yaml
+
+    from artiboost_torch import submit_reload
+    from artiboost_torch.ops.rasterizer_cuda import prepare_raster, raster_rgb
+    from artiboost_torch.postprocess.fitting import FittingUnit
+    from artiboost_torch.submit.epoch_pass import HOSubmitEpochPass
+    from artiboost_torch.utils.config import load_config
+
+    tmp = real["root"]
+    cfg = load_config(os.path.join(REPO, "config_eval", "eval_ho3dv2_clasbased_artiboost.yaml"))
+    cfg["DATASET"]["TEST"]["DATA_ROOT"] = real["data"]
+    from artiboost_torch.viztools import draw as viz
+
+    rec = {"fit": [], "fit_s": 0.0, "draw_s": 0.0, "draws": 0, "raster": None}
+    orig = {"fit": FittingUnit.__call__, "draw": HOSubmitEpochPass.draw_batch,
+            "raster": viz.rasterize_batch_rgb}
+
+    def raster(*args, **kw):
+        if rec["raster"] is None:
+            rec["raster"] = (args, kw)
+        return orig["raster"](*args, **kw)
+
+    def fit(self, joints_abs, batch=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["fit"](self, joints_abs, batch)
+        torch.cuda.synchronize()
+        rec["fit_s"] += time.perf_counter() - t0
+        rec["fit"].append((self, joints_abs.clone(), out["joints"], out["hand_verts"]))
+        return out
+
+    def draw(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig["draw"](self, *args, **kw)
+        torch.cuda.synchronize()
+        rec["draw_s"] += time.perf_counter() - t0
+        rec["draws"] += 1
+
+    FittingUnit.__call__, HOSubmitEpochPass.draw_batch = fit, draw
+    viz.rasterize_batch_rgb = raster
+    try:
+        os.chdir(tmp)
+        with open("eval.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        draw_dir = os.path.join(tmp, "draw")
+        zero_counts()
+        out = submit_reload.main(["--cfg", "eval.yaml", "--reload", real["ckpt"], "--exp_id",
+                                  "smoke13", "--submit_dump", "--postprocess_fit_mesh",
+                                  "--postprocess_draw", "--postprocess_draw_path", draw_dir])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(out["weights"] == real["ckpt"] and out["batches"] == 2,
+              f"phase 13 evaluated {out['weights']} over {out['batches']} batches")
+        with open(out["pred_path"]) as f:
+            xyz, verts = json.load(f)
+        check(len(xyz) == len(verts) == real["n_test"] == 160
+              and all(len(j) == 21 and all(len(p) == 3 for p in j) for j in xyz)
+              and all(len(v) == 778 and all(len(p) == 3 for p in v) for v in verts),
+              f"phase 13 dumped {len(xyz)} joint and {len(verts)} vert lists")
+        zipped = out["pred_path"].replace(".json", ".zip")
+        with zipfile.ZipFile(zipped) as zf:
+            infos = zf.infolist()
+            check([i.filename for i in infos] == [os.path.basename(out["pred_path"])]
+                  and infos[0].compress_type == zipfile.ZIP_DEFLATED
+                  and zf.read(infos[0].filename) == open(out["pred_path"], "rb").read(),
+                  f"phase 13 zip holds {[(i.filename, i.compress_type) for i in infos]}")
+        fitted_verts = torch.cat([r[3] for r in rec["fit"]])
+        check(len(rec["fit"]) == 2 and bool(torch.isfinite(fitted_verts).all()),
+              f"phase 13: {len(rec['fit'])} fits, finite {bool(torch.isfinite(fitted_verts).all())}")
+        err_fit, err_warm = [], []
+        for unit, joints, fitted, _ in rec["fit"]:
+            err_fit.append((fitted - joints).norm(dim=-1).mean(-1))
+            err_warm.append((unit.warm_start(joints)["joints"] - joints).norm(dim=-1).mean(-1))
+        err_fit, err_warm = (float(torch.cat(e).mean()) for e in (err_fit, err_warm))
+        check(err_fit < err_warm, f"phase 13: fitted joints {err_fit * 1e3:.3f} mm from the "
+              f"prediction, IKNet's warm start {err_warm * 1e3:.3f} mm")
+        pngs = sorted(os.listdir(draw_dir))
+        check(pngs == ["eval_batch_0000.png", "eval_batch_0001.png"] and rec["draws"] == 2,
+              f"phase 13 overlays {pngs}")
+        tiles = 2 * 16
+        check(launches == {"raster_uv": 0, "raster_rgb": tiles, "raster_rgb_binned": 0},
+              f"phase 13 launches {launches}, expected {tiles} rgb (one a tile), no other")
+        m = out["measures"]
+        check(all(math.isfinite(v) for name in m for v in m[name].values()),
+              f"phase 13 measures {m}")
+        eval_ms = (out["seconds"] - rec["fit_s"] - rec["draw_s"]) * 1e3 / out["batches"]
+    finally:
+        os.chdir(REPO)
+        FittingUnit.__call__, HOSubmitEpochPass.draw_batch = orig["fit"], orig["draw"]
+        viz.rasterize_batch_rgb = orig["raster"]
+    print(f"phase 13, submission of config_eval/eval_ho3dv2_clasbased_artiboost.yaml ({card}): "
+          f"{len(xyz)} evaluation frames in {out['batches']} batches of 128 from phase 11's last "
+          f"checkpoint, {out['seconds']:.2f} s; launches {launches}; Codalab JSON of {len(xyz)} "
+          f"joint and vert lists and its zip; fitted joints {err_fit * 1e3:.3f} mm from the "
+          f"prediction against IKNet's warm start {err_warm * 1e3:.3f} mm; "
+          f"Mean3DEPE joints {m['Mean3DEPE']['joints_3d_abs_mepe']:.2f} mm", flush=True)
+    print(f"  per batch of 128 ({card}): eval pass (decode, forward, metrics, dump rows) "
+          f"{eval_ms:.3f} ms; FittingUnit (20 Adam steps through MANO) "
+          f"{rec['fit_s'] * 1e3 / len(rec['fit']):.3f} ms; draw (16 overlay tiles) "
+          f"{rec['draw_s'] * 1e3 / rec['draws']:.3f} ms", flush=True)
+    args, kw = rec["raster"]
+    inp = prepare_raster(*args, **kw)
+    hold(raster_rgb, inp, f"phase 13 overlay tile (fitted hand and object box, "
+                          f"{inp.height}x{inp.width})")
+    timing(raster_rgb, inp, 3, card, torch)
     return launches
 
 
@@ -1214,13 +1484,25 @@ def main():
     launches10 = other_recipe(10, "dexycb_clasbased_sym_artiboost", card, read_counts,
                               zero_counts)
 
-    # ---- 11. the released recipe on real-layout data at full width ----
-    launches11 = real_data_recipe(card, kernels, hold, read_counts, zero_counts)
+    real_dir = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    try:
+        # ---- 11. the released recipe on real-layout data at full width ----
+        launches11, real = real_data_recipe(card, kernels, hold, read_counts, zero_counts,
+                                            real_dir)
+
+        # ---- 12. the synth options at full width ----
+        launches12 = synth_options(card, hold, read_counts, zero_counts)
+
+        # ---- 13. the submission entry point on phase 11's files and checkpoint ----
+        launches13 = submission(card, real, hold, read_counts, zero_counts)
+    finally:
+        shutil.rmtree(real_dir, ignore_errors=True)
 
     rows = []
-    main_path = {"8": launches8, "9": launches9, "10": launches10, "11": launches11}
+    main_path = {"8": launches8, "9": launches9, "10": launches10, "11": launches11,
+                 "12": launches12}
     for name, src_line, phases in (("raster_uv", 222, main_path),
-                                   ("raster_rgb", 201, main_path),
+                                   ("raster_rgb", 201, dict(main_path, **{"13": launches13})),
                                    ("raster_rgb_binned", 272, {"6": launches6})):
         k = kernels[name]
         by_phase = {p: counts[name] for p, counts in phases.items()}

@@ -8,8 +8,16 @@ real/synth train iteration (``__iter__`` and ``iter_parts``, with the
 epoch's real and synth permutations), ``prepare_val`` / ``iter_val``
 (the uniform sweep without replacement, rendered batch by batch),
 ``should_val``, ``step_eval`` / ``sample_reweight`` (mining),
-``synth_shutdown`` and the checkpoint state. The mesh (multi-device)
-branches wait for the multi-GPU slice.
+``synth_shutdown`` and the checkpoint state.
+
+Under a process group (``parallel/mesh.py``, the JAX loader's mesh
+branches) the loader keeps JAX's roundings (``round_len_train``,
+``sweep_chunk``, ``val_count``, ``mixed_counts``), every rank makes every
+draw of the global batch from the same seeded generator, and each rank
+computes only its own rows: its share of each pose-sweep chunk (the pose
+cache then all-gathered, loader.py:139-150), of each synth render
+(:192-200) and of each real half, whose host half every rank builds whole
+so that the dataset's draws stay in plan order (``put_global``).
 
 Randomness comes from a ``DrawSource``: the default draws from one
 ``torch.Generator``; a test can hand in one that replays recorded draws."""
@@ -17,7 +25,8 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import Dict, Iterator, List, Optional, Tuple
+import tempfile
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +49,72 @@ from artiboost_torch.artiboost.synth_batch import SynthBatch, SynthConfig
 from artiboost_torch.artiboost.view_engine import ViewEngineConfig, persp_rotmat_centers
 from artiboost_torch.mano.model import ManoModel, get_mano_model
 from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
+from artiboost_torch.parallel import mesh
 from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.misc import logger, resolve_device
 from artiboost_torch.utils.prefetch import IN_PLACE
+
+
+def round_len_train(n: int, n_ranks: int) -> int:
+    """CONFIG_LEN_TRAIN rounded up to tile the ranks (loader.py:214-216)."""
+    return -(-n // n_ranks) * n_ranks if n_ranks > 1 else n
+
+
+def sweep_chunk(n: int, opg_batch_size: int, n_ranks: int) -> int:
+    """The pose sweep's chunk for n triplets, rounded up to tile the ranks
+    (loader.py:256-260)."""
+    chunk = min(opg_batch_size, n)
+    return max(-(-chunk // n_ranks) * n_ranks, n_ranks) if n_ranks > 1 else chunk
+
+
+def val_count(config_len_val: int, n_valid: int, batch_size: int, n_ranks: int) -> int:
+    """The val sweep's triplet count: VAL_LEN within the non-blacklisted
+    triplets, whole batches when there is one, then rounded down to tile
+    the ranks (loader.py:311-319)."""
+    n = max(min(config_len_val, n_valid), 1)
+    if n >= batch_size:
+        n = (n // batch_size) * batch_size
+    return max((n // n_ranks) * n_ranks, n_ranks) if n_ranks > 1 else n
+
+
+def mixed_counts(batch_size: int, real_len: int, synth_len: int, n_ranks: int) -> Tuple[int, int]:
+    """(real, synth) samples per batch in proportion to the epoch's real
+    length and CONFIG_LEN_TRAIN; across ranks the synth count rounds to the
+    nearest multiple of the world, keeping one a rank and a real slice
+    (loader.py:365-381)."""
+    if real_len + synth_len == 0:
+        return 0, 0
+    n_synth = batch_size if real_len == 0 else int(
+        round(batch_size * synth_len / (real_len + synth_len)))
+    if real_len and n_synth and n_ranks > 1:
+        n_synth = max(int(round(n_synth / n_ranks)) * n_ranks, n_ranks)
+        n_synth = min(n_synth, max(batch_size - n_ranks, n_ranks))
+    return batch_size - n_synth, n_synth
+
+
+def cached_blacklist(cache_path: str, build: Callable[[], torch.Tensor], device
+                     ) -> torch.Tensor:
+    """The CCV blacklist from its disk cache, else ``build()``, cached. Ranks
+    that start together share the cache: it is written to a file of the
+    writer's own and renamed into place, so a reader finds no cache or all
+    of it (``np.load`` of a half-written file raises, it does not return
+    another map)."""
+    if os.path.isfile(cache_path):
+        return torch.from_numpy(np.load(cache_path)).to(device)
+    blacklist = build()
+    write_npy(cache_path, blacklist.cpu().numpy())
+    return blacklist
+
+
+def write_npy(path: str, array: np.ndarray) -> None:
+    """``np.save`` to a file of this writer's own in ``path``'s directory,
+    renamed onto ``path`` once whole."""
+    cache_dir = os.path.dirname(path) or "."
+    os.makedirs(cache_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=cache_dir, suffix=".tmp")
+    with os.fdopen(fd, "wb") as f:
+        np.save(f, array)
+    os.replace(tmp, path)
 
 
 class DrawSource:
@@ -80,6 +152,9 @@ class ArtiBoostLoader:
         cfg = cfg or {}
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        self.n_ranks = mesh.world()
+        if batch_size % self.n_ranks:
+            raise ValueError(f"batch size {batch_size} does not tile {self.n_ranks} ranks")
         self.n_epochs = n_epochs
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -114,14 +189,10 @@ class ArtiBoostLoader:
                 self.grasp_lib.hand_pose[..., :3].cpu().numpy().tobytes(),
             )).encode()).hexdigest()
             cache_dir = cfg.get("CACHE_DIR", "common/cache/CCV_blacklist_torch")
-            cache_path = os.path.join(cache_dir, f"{ident}.npy")
-            if os.path.isfile(cache_path):
-                blacklist = torch.from_numpy(np.load(cache_path)).to(self.device)
-            else:
-                blacklist = build_blacklist_map(
-                    self.grasp_lib.hand_pose, persp_rotmat_centers(self.view_cfg, self.device))
-                os.makedirs(cache_dir, exist_ok=True)
-                np.save(cache_path, blacklist.cpu().numpy())
+            blacklist = cached_blacklist(
+                os.path.join(cache_dir, f"{ident}.npy"), lambda: build_blacklist_map(
+                    self.grasp_lib.hand_pose, persp_rotmat_centers(self.view_cfg, self.device)),
+                self.device)
             logger.info(f"blacklist: {float(blacklist.mean()) * 100:.1f}% of "
                         f"{n_obj * n_persp * n_grasp} CCV triplets filtered")
         self.ccv = init_ccv_space(n_obj, n_persp, n_grasp, blacklist, device=self.device)
@@ -174,8 +245,9 @@ class ArtiBoostLoader:
         # epoch sizing (reference: synth_len = synth_factor * len(real))
         self.real_dataset = real_dataset
         self.synth_factor = float(cfg.get("SYNTH_FACTOR", 0.6))
-        self.config_len_train = int(cfg.get(
-            "CONFIG_LEN_TRAIN", max(int(self.synth_factor * self._real_len()), batch_size)))
+        self.config_len_train = round_len_train(int(cfg.get(
+            "CONFIG_LEN_TRAIN", max(int(self.synth_factor * self._real_len()), batch_size))),
+            self.n_ranks)
         self.generated: Optional[GeneratedPoses] = None
         self.has_val_sweep = "VAL_LEN" in cfg
         self.config_len_val = int(cfg.get("VAL_LEN", self.config_len_train))
@@ -195,18 +267,23 @@ class ArtiBoostLoader:
 
     def _generate_poses(self, oid, vid, gid) -> GeneratedPoses:
         """Pose sweep in fixed-size chunks (OPG_BATCH_SIZE), the tail
-        repeat-padded to a full chunk and trimmed after."""
+        repeat-padded to a full chunk and trimmed after. Across ranks each
+        computes its rows of every chunk and the chunk is all-gathered."""
         n = int(oid.shape[0])
-        chunk = min(self.opg_batch_size, n)
+        chunk = sweep_chunk(n, self.opg_batch_size, self.n_ranks)
         n_pad = -(-n // chunk) * chunk
         if n_pad != n:
             pad = n_pad - n
             oid, vid, gid = (torch.cat([x, x[:pad]]) for x in (oid, vid, gid))
+        lo, hi = mesh.rows(chunk)
         pieces = []
         for s in range(0, n_pad, chunk):
-            draws = self.draws.poses(self.pose_generator, chunk)
-            pieces.append(self.pose_generator(oid[s:s + chunk], vid[s:s + chunk],
-                                              gid[s:s + chunk], draws))
+            draws = mesh.shard_rows(self.draws.poses(self.pose_generator, chunk), chunk)
+            piece = self.pose_generator(oid[s + lo:s + hi], vid[s + lo:s + hi],
+                                        gid[s + lo:s + hi], draws)
+            if self.n_ranks > 1:
+                piece = GeneratedPoses(*(mesh.all_gather_rows(x) for x in piece))
+            pieces.append(piece)
         return cat_poses(pieces, n)
 
     def prepare_val(self):
@@ -217,9 +294,7 @@ class ArtiBoostLoader:
             return
         O, V, G = self.ccv.shape
         n_valid = O * V * G - int(self.ccv.blacklist_map.sum())
-        n = max(min(self.config_len_val, n_valid), 1)
-        if n >= self.batch_size:
-            n = (n // self.batch_size) * self.batch_size
+        n = val_count(self.config_len_val, n_valid, self.batch_size, self.n_ranks)
         uniform = self.ccv._replace(sample_weight_map=torch.ones_like(self.ccv.sample_weight_map))
         flat = self.draws.triplets(uniform, n, replace=False)
         oid, vid, gid, occ = triplets_from_flat(self.ccv, flat)
@@ -234,14 +309,16 @@ class ArtiBoostLoader:
                 and epoch_idx % self.val_freq == self.val_freq - 1)
 
     def iter_val(self) -> Iterator[Dict]:
-        """Pure-synth val batches in draw order (each triplet once)."""
+        """Pure-synth val batches in draw order (each triplet once); across
+        ranks this rank's rows of each."""
         if self.generated_val is None:
             raise RuntimeError("prepare_val() must run before iter_val()")
         n = int(self.generated_val.obj_id.shape[0])
         bs = min(self.batch_size, n)
+        lo, hi = mesh.rows(bs)
         for s in range(0, n - bs + 1, bs):
-            idx = torch.arange(s, s + bs, device=self.device)
-            draws = self.draws.synth(self.synth_batch_fn, bs)
+            idx = torch.arange(s + lo, s + hi, device=self.device)
+            draws = mesh.shard_rows(self.draws.synth(self.synth_batch_fn, bs), bs)
             yield self.synth_batch_fn(self.generated_val, idx, draws)
 
     # ---- the train epoch: mixed real/synth batches ----
@@ -249,15 +326,9 @@ class ArtiBoostLoader:
         return len(self.real_dataset) if self.real_dataset is not None else 0
 
     def _mixed_counts(self) -> Tuple[int, int]:
-        """(real, synth) samples per batch, in proportion to the epoch's
-        real length and CONFIG_LEN_TRAIN (loader.py:365-381)."""
-        real_len = self._real_len()
-        synth_len = self.config_len_train if self.use_synth else 0
-        if real_len + synth_len == 0:
-            return 0, 0
-        n_synth = self.batch_size if real_len == 0 else int(
-            round(self.batch_size * synth_len / (real_len + synth_len)))
-        return self.batch_size - n_synth, n_synth
+        """(real, synth) samples per global batch (``mixed_counts``)."""
+        return mixed_counts(self.batch_size, self._real_len(),
+                            self.config_len_train if self.use_synth else 0, self.n_ranks)
 
     def _synth_epoch_perm(self, seed: int) -> np.ndarray:
         """Fresh permutation of the pose cache: every synth sample is
@@ -295,10 +366,17 @@ class ArtiBoostLoader:
         return plan()
 
     def synth_indices(self, synth_idx: Optional[np.ndarray]) -> Optional[torch.Tensor]:
-        """A plan's synth pose indices on the device."""
+        """A plan's synth pose indices on the device (all of the global
+        batch's: ``synth_part`` renders this rank's rows)."""
         if synth_idx is None:
             return None
         return torch.as_tensor(synth_idx, dtype=torch.int64, device=self.device)
+
+    def real_part(self, host_batch) -> Dict:
+        """The device half of a plan's real batch: this rank's rows of the
+        host half every rank built."""
+        rows = mesh.rows(len(host_batch.sample_idx)) if self.n_ranks > 1 else None
+        return self.real_dataset.device_half(host_batch, rows=rows)
 
     def iter_parts(self) -> Iterator[Tuple[Optional[Dict], Optional[torch.Tensor]]]:
         """(real batch or None, synth pose indices or None) per step, on the
@@ -309,13 +387,16 @@ class ArtiBoostLoader:
         ``train.train_epoch`` walks the same plan with the real halves
         prefetched."""
         halves = IN_PLACE.host_halves(self.real_dataset, self.iter_plan(), self._mixed_counts()[0])
-        return ((None if hb is None else self.real_dataset.device_half(hb), self.synth_indices(s))
+        return ((None if hb is None else self.real_part(hb), self.synth_indices(s))
                 for hb, s in halves)
 
     def synth_part(self, sidx: torch.Tensor) -> Dict:
-        """Render the synth half of a train batch from the epoch's poses."""
-        return self.synth_batch_fn(self.generated, sidx,
-                                   self.draws.synth(self.synth_batch_fn, int(sidx.shape[0])))
+        """Render the synth half of a train batch from the epoch's poses:
+        the draws of all ``sidx``, this rank's rows rendered."""
+        n = int(sidx.shape[0])
+        draws = mesh.shard_rows(self.draws.synth(self.synth_batch_fn, n), n)
+        lo, hi = mesh.rows(n)
+        return self.synth_batch_fn(self.generated, sidx[lo:hi], draws)
 
     def __iter__(self) -> Iterator[Dict]:
         """Mixed batches over the key union (``utils.batching.union_concat``:

@@ -8,11 +8,15 @@ at each of ITERS iterations.
 RefineNet is the JAX package's re-design (LayerNorm ResBlocks, zero-init
 delta heads); GrabNet's ``refinenet.pt`` does not load into it, so the
 weights come from the flax params in ``assets/refinenet_tpu.npz``
-(``utils/convert.py`` ``refinenet_from_flax``)."""
+(``utils/convert.py`` ``refinenet_from_flax``). ``RefinerTrainStep``
+trains it (JAX ``make_refiner_train_step``, :158-257) and
+``save_refiner_params`` writes that npz
+(``python -m artiboost_torch.scripts.train_refiner``)."""
 from __future__ import annotations
 
+import math
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -134,6 +138,96 @@ def make_ho_refiner(mano_model: ManoModel, net: RefineNet, n_iters: int = 3) -> 
                 "hand_pose": aa, "hand_tsl": trans}
 
     return refine
+
+
+class RefinerTrainStep:
+    """One Adam step (optax.adam: b1 0.9, b2 0.999, eps 1e-8) of the unrolled
+    refinement, the JAX package's GrabNet-style recipe: clean grasps under a
+    random global rotation (``rotate_hand_global``), their FK and chamfer
+    profile, the scrambler's corruption, then ``n_iters`` refinements through
+    ``rot6d_to_rotmat`` and ``mano_forward_rotmat``, never ``rotmat_to_aa``,
+    whose backward is singular at identity (JAX :218-220). The loss is
+    w_verts * the vertices' and w_joints * the joints' mean squared
+    recovery plus w_contact * the refined contact profile's squared gap to
+    the clean one.
+
+    ``draws(generator, B)`` makes a step's random half: the rotation's axis
+    (standard normal (B, 3)) and angle (U(0, 2 pi) (B, 1)) and the
+    scrambler's draws; ``step(draws, hand_pose (B, 48), hand_shape (B, 10),
+    hand_tsl (B, 3), obj_verts (B, M, 3), obj_valid (B, M))`` -> the
+    detached metrics {loss, l_verts, l_joints, l_contact}."""
+
+    def __init__(self, mano_model: ManoModel, net: RefineNet, scrambler, n_iters: int = 3,
+                 learning_rate: float = 1e-4, w_verts: float = 1.0, w_joints: float = 1.0,
+                 w_contact: float = 0.5):
+        self.mano_model, self.net, self.scrambler = mano_model, net, scrambler
+        self.n_iters = n_iters
+        self.weights = (w_verts, w_joints, w_contact)
+        self.optimizer = torch.optim.Adam(net.parameters(), lr=learning_rate,
+                                          betas=(0.9, 0.999), eps=1e-8)
+
+    def draws(self, generator: torch.Generator, B: int) -> Dict:
+        device = next(self.net.parameters()).device
+        return {"axis": torch.randn(B, 3, generator=generator, device=device),
+                "angle": torch.rand(B, 1, generator=generator, device=device) * (2.0 * math.pi),
+                "scram": self.scrambler.draws(generator, B, device)}
+
+    def _h2o(self, verts, obj_verts, obj_valid) -> torch.Tensor:
+        d_xy, _ = chamfer_distance(verts, obj_verts, mask_y=obj_valid)
+        return torch.sqrt(torch.clamp_min(d_xy, 1e-12))
+
+    def loss(self, draws: Dict, hand_pose, hand_shape, hand_tsl, obj_verts, obj_valid
+             ) -> Tuple[torch.Tensor, Dict]:
+        from artiboost_torch.artiboost.pose_generator import rotate_hand_global
+
+        mano, B = self.mano_model, hand_pose.shape[0]
+        with torch.no_grad():
+            axis = draws["axis"] / torch.clamp_min(
+                torch.linalg.norm(draws["axis"], dim=-1, keepdim=True), 1e-8)
+            rot = aa_to_rotmat(axis * draws["angle"])
+            hand_pose, hand_tsl = rotate_hand_global(mano, rot, hand_pose, hand_shape, hand_tsl)
+            obj_verts = torch.einsum("bij,bnj->bni", rot, obj_verts)
+            clean = mano_forward(mano, hand_pose, hand_shape)
+            clean_verts = clean.verts + hand_tsl[:, None]
+            clean_joints = clean.joints + hand_tsl[:, None]
+            d_clean = self._h2o(clean_verts, obj_verts, obj_valid)
+            scram = self.scrambler({"hand_pose": hand_pose, "hand_tsl": hand_tsl,
+                                    "joints": clean_joints, "hand_verts": clean_verts,
+                                    "hand_transf": clean.transforms_abs}, draws["scram"])
+        pose_6d, trans = pose_aa_to_6d(scram["hand_pose"]), scram["hand_tsl"]
+        for _ in range(self.n_iters):
+            rots = rot6d_to_rotmat(pose_6d.reshape(B, 16, 6))
+            verts = mano_forward_rotmat(mano, rots, hand_shape).verts + trans[:, None]
+            dpose, dtrans = self.net(self._h2o(verts, obj_verts, obj_valid), pose_6d, trans)
+            pose_6d, trans = pose_6d + dpose, trans + dtrans
+        out = mano_forward_rotmat(mano, rot6d_to_rotmat(pose_6d.reshape(B, 16, 6)), hand_shape)
+        verts, joints = out.verts + trans[:, None], out.joints + trans[:, None]
+        d_ref = self._h2o(verts, obj_verts, obj_valid)
+        l_verts = torch.mean(torch.sum((verts - clean_verts) ** 2, dim=-1))
+        l_joints = torch.mean(torch.sum((joints - clean_joints) ** 2, dim=-1))
+        l_contact = torch.mean((d_ref - d_clean) ** 2)
+        w_verts, w_joints, w_contact = self.weights
+        loss = w_verts * l_verts + w_joints * l_joints + w_contact * l_contact
+        return loss, {"loss": loss, "l_verts": l_verts, "l_joints": l_joints,
+                      "l_contact": l_contact}
+
+    def __call__(self, draws: Dict, *batch) -> Dict:
+        self.net.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = self.loss(draws, *batch)
+        loss.backward()
+        self.optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+
+
+def save_refiner_params(net: RefineNet, path: str) -> None:
+    """The JAX package's flat npz of RefineNet's flax params ("params/..."
+    keys), which ``build_refiner`` here and ``load_refiner_params`` there
+    read."""
+    from artiboost_torch.utils.convert import refinenet_to_flax, save_flax_npz
+
+    save_flax_npz({"params": refinenet_to_flax(net.state_dict())}, path)
 
 
 def build_refiner(cfg: Dict, mano_model: ManoModel, device=None) -> Callable:

@@ -9,6 +9,7 @@ import torch
 
 from artiboost_torch.criterions.criterion import TensorLoss
 from artiboost_torch.datasets.hoquery import Queries
+from artiboost_torch.parallel.mesh import shard_normaliser
 from artiboost_torch.utils.batching import key_validity, masked_sample_mean
 
 
@@ -81,7 +82,7 @@ class ObjLoss(TensorLoss):
                 mask = m[:, None].expand(pred.shape[:2]) if mask is None else mask * m[:, None]
             if mask is not None:
                 diff = ((pred - targ) ** 2) * mask[..., None]
-                loss = torch.sum(diff) / (torch.sum(mask) * 3.0 + 1e-8)
+                loss = torch.sum(diff) / (shard_normaliser(torch.sum(mask)) * 3.0 + 1e-8)
             else:
                 loss = torch.mean((pred - targ) ** 2)
             final_loss = final_loss + self.lambda_obj_verts_3d * loss

@@ -442,21 +442,27 @@ class HODataset(ABC):
         return HostBatch(geoms, sidx, flips, inv, jitter, images, staging, slot,
                          (t1 - t0, time.perf_counter() - t1))
 
-    def device_half(self, host: HostBatch) -> Dict[str, torch.Tensor]:
+    def device_half(self, host: HostBatch, rows: Optional[Tuple[int, int]] = None
+                    ) -> Dict[str, torch.Tensor]:
         """Upload (or gather on the device), flip, warp, collate. Runs on
-        the thread that owns the device stream."""
+        the thread that owns the device stream. ``rows`` = (lo, hi): only
+        those rows of the host half (a rank's share, ``mesh.rows``), their
+        vertex fields padded to the whole host half's longest."""
+        lo, hi = (0, len(host.sample_idx)) if rows is None else rows
         if host.images is None:
-            images = self.get_images(torch.as_tensor(host.sample_idx, device=self.device))
+            images = self.get_images(torch.as_tensor(host.sample_idx[lo:hi], device=self.device))
         elif host.staging is not None:
-            images = host.staging.upload(host.slot, self.device)
+            images = host.staging.upload(host.slot, self.device)[lo:hi]
         else:
-            images = torch.from_numpy(host.images).to(self.device)
-        flips = torch.as_tensor(host.flips, device=self.device)
+            images = torch.from_numpy(host.images[lo:hi]).to(self.device)
+        flips = torch.as_tensor(host.flips[lo:hi], device=self.device)
         images = torch.where(flips[:, None, None, None], images.flip(2), images)
-        batch = ho_collate(host.geoms, self.device)
+        batch = ho_collate(host.geoms[lo:hi], self.device,
+                           pad_to=None if rows is None else _longest_verts(host.geoms))
         batch[Queries.IMAGE] = warp_affine_batch(
-            images, torch.from_numpy(host.inv_affines).to(self.device),
-            torch.from_numpy(host.jitter).to(self.device), self.image_size[1], self.image_size[0])
+            images, torch.from_numpy(host.inv_affines[lo:hi]).to(self.device),
+            torch.from_numpy(host.jitter[lo:hi]).to(self.device), self.image_size[1],
+            self.image_size[0])
         return batch
 
     def sample_batch(self, idx_list: Sequence[int]) -> Dict[str, torch.Tensor]:
@@ -466,37 +472,49 @@ class HODataset(ABC):
 
 
 def padded_host_loader(dataset: HODataset, batch_size: int, shuffle: bool = False,
-                       seed: int = 0, host=None):
+                       seed: int = 0, host=None, rows: Optional[Tuple[int, int]] = None):
     """Batches over the WHOLE dataset for evaluation passes: the last
     partial batch is repeat-padded to ``batch_size`` and carries
     ``Queries.SAMPLE_VALID`` (1 real / 0 pad), which the metrics honour.
     The host halves come from ``host`` (a ``utils.prefetch.HostPipeline``;
     made in place without one), as the train pass's do; the device halves
-    run on the calling thread."""
+    run on the calling thread. With ``rows`` = (lo, hi) each batch is those
+    rows of the global one."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
     plan = ((idx + [idx[-1]] * (batch_size - len(idx)), len(idx))
             for idx in (order[s:s + batch_size].tolist()
                         for s in range(0, len(order), batch_size)))
+    lo, hi = (0, batch_size) if rows is None else rows
     for hb, n_valid in (host or IN_PLACE).host_halves(dataset, plan, batch_size):
         with profiling.trace("data/real_device"):
-            batch = dataset.device_half(hb)
+            batch = dataset.device_half(hb, rows=rows)
         if n_valid < batch_size:
             valid = torch.zeros((batch_size,), dtype=torch.float32, device=dataset.device)
             valid[:n_valid] = 1.0
-            batch[Queries.SAMPLE_VALID] = valid
+            batch[Queries.SAMPLE_VALID] = valid[lo:hi]
         yield batch
 
 
-def ho_collate(samples: List[Dict], device) -> Dict[str, torch.Tensor]:
+_VERTEX_FIELDS = (Queries.OBJ_VERTS_3D, Queries.OBJ_VERTS_CAN, Queries.OBJ_VERTS_2D)
+
+
+def _longest_verts(samples: List[Dict]) -> Optional[int]:
+    """The most object vertices of any sample, None without vertex fields."""
+    present = [q for q in _VERTEX_FIELDS if q in samples[0]]
+    return max(s[present[0]].shape[0] for s in samples) if present else None
+
+
+def ho_collate(samples: List[Dict], device, pad_to: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
     """Stack sample dicts into device tensors; repeat-pad the
-    variable-size vertex fields and emit PADDING_MASK (hodata.py:407)."""
-    extend = [Queries.OBJ_VERTS_3D, Queries.OBJ_VERTS_CAN, Queries.OBJ_VERTS_2D]
+    variable-size vertex fields (to ``pad_to``, default the longest) and
+    emit PADDING_MASK (hodata.py:407)."""
     out: Dict[str, torch.Tensor] = {}
-    present = [q for q in extend if q in samples[0]]
+    present = [q for q in _VERTEX_FIELDS if q in samples[0]]
     if present:
-        max_size = max(s[present[0]].shape[0] for s in samples)
+        max_size = pad_to or _longest_verts(samples)
         mask = np.zeros((len(samples), max_size), np.float32)
         for bi, s in enumerate(samples):
             mask[bi, :s[present[0]].shape[0]] = 1.0

@@ -15,6 +15,7 @@ import torch
 
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.metrics.val_metric import OnesPad, mspd_values, mssd_values, vsd_values
+from artiboost_torch.parallel.mesh import all_gather_rows
 from artiboost_torch.utils.bop_sym import SymTable, load_model_info
 from artiboost_torch.utils.misc import resolve_device
 
@@ -88,6 +89,11 @@ class AR:
             vals_vsd = torch.full((vals_m.shape[0], N_THRESHOLDS), float("nan"),
                                   dtype=vals_m.dtype, device=vals_m.device)
         self._chunks.append((vals_m, vals_px, vals_vsd, obj_idx))
+
+    def all_reduce(self):
+        """Every rank's per-sample errors, gathered (once, after a pass)."""
+        if self._chunks:
+            self._chunks = [tuple(all_gather_rows(torch.cat(c)) for c in zip(*self._chunks))]
 
     def _collect(self):
         """-> (errors (N,), errors_px (N,), errors_vsd (N, 10), obj_idx (N,))

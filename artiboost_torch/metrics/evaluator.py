@@ -18,6 +18,7 @@ from artiboost_torch.metrics.pckmetric import (
 )
 from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
 from artiboost_torch.metrics.vismetric import Vis2DMetric, VisHand2DMetric, VisMetric
+from artiboost_torch.parallel import mesh
 from artiboost_torch.utils.misc import logger, resolve_device
 
 METRICS = {m.__name__: m for m in (
@@ -37,18 +38,33 @@ class Evaluator:
     def losses_metric(self) -> Optional[LossesMetric]:
         return next((m for m in self.metrics_list if isinstance(m, LossesMetric)), None)
 
-    def feed_all(self, preds: Dict, targs: Dict, losses: Dict):
+    def feed_all(self, preds: Dict, targs: Dict, losses: Dict, n_global: Optional[int] = None):
         """LossesMetric takes the losses weighted by the batch's sample
         count (the valid count of a padded eval batch); the others take
-        preds and targets."""
+        preds and targets. Under a process group ``n_global`` is the global
+        batch's count (default: this rank's times the world) and each rank
+        weights its losses by ``n_global / world``."""
         batch_size = int(preds[next(iter(preds))].shape[0])
         if Queries.SAMPLE_VALID in targs:
             batch_size = int(targs[Queries.SAMPLE_VALID].sum())
+        n_ranks = mesh.world()
+        if n_ranks > 1:
+            batch_size = (batch_size * n_ranks if n_global is None else n_global) / n_ranks
         for metric in self.metrics_list:
             if isinstance(metric, LossesMetric):
                 metric.feed(losses, batch_size=batch_size)
             else:
                 metric.feed(preds=preds, targs=targs)
+
+    def all_reduce(self):
+        """After a pass under a process group: every metric's accumulators
+        reduced over ranks, so every rank reads the global figures (the
+        visualisations keep this rank's first batch)."""
+        if mesh.world() == 1:
+            return
+        for metric in self.metrics_list:
+            if hasattr(metric, "all_reduce"):
+                metric.all_reduce()
 
     def get_measures_all(self) -> Dict[str, Dict]:
         measures_all: Dict[str, Dict] = {}

@@ -9,6 +9,7 @@ from typing import Dict, List
 import torch
 
 from artiboost_torch.metrics.metric import AverageMeter
+from artiboost_torch.parallel.mesh import all_reduce_sum_
 
 
 class LossesMetric:
@@ -20,13 +21,27 @@ class LossesMetric:
         self.sums: Dict[str, torch.Tensor] = {}
         self.counts: Dict[str, int] = {}
 
-    def feed(self, losses: Dict[str, torch.Tensor], batch_size: int = 1, **_):
+    def feed(self, losses: Dict[str, torch.Tensor], batch_size: float = 1, **_):
+        """Each loss weighted by ``batch_size`` samples (under a process
+        group, the global batch's count over the world: the sums over ranks
+        then weight the mean of the ranks' losses by the global count)."""
         for k, v in losses.items():
             if v is None:
                 continue
             v = v.detach().float() * float(batch_size)
             self.sums[k] = self.sums[k] + v if k in self.sums else v
             self.counts[k] = self.counts.get(k, 0) + batch_size
+
+    def all_reduce(self):
+        """The sums and counts of every rank, summed (once, after a pass)."""
+        if not self.sums:
+            return
+        keys = sorted(self.sums)
+        buf = torch.stack([self.sums[k] for k in keys])
+        counts = torch.tensor([float(self.counts[k]) for k in keys], device=buf.device)
+        buf = all_reduce_sum_(torch.cat([buf, counts]))
+        self.sums = dict(zip(keys, buf[:len(keys)]))
+        self.counts = dict(zip(keys, buf[len(keys):].tolist()))
 
     def meters(self) -> Dict[str, AverageMeter]:
         if not self.sums:

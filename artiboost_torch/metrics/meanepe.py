@@ -12,6 +12,7 @@ import torch
 
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.metrics.metric import AverageMeter
+from artiboost_torch.parallel.mesh import all_reduce_sum_
 from artiboost_torch.utils.batching import key_validity
 from artiboost_torch.utils.misc import resolve_device
 
@@ -49,6 +50,11 @@ class Mean3DEPE:
             if kv is not None:
                 mask = mask * kv
             self.acc[key] = self.acc[key] + torch.stack([torch.sum(d * mask), torch.sum(mask)])
+
+    def all_reduce(self):
+        """Every rank's (sum, count) pairs, summed (once, after a pass)."""
+        flat = all_reduce_sum_(torch.stack([self.acc[k] for k in self.val_keys_list]))
+        self.acc = dict(zip(self.val_keys_list, flat))
 
     def avg_meters(self) -> Dict[str, AverageMeter]:
         scale = 1000.0 if self.to_millimeters else 1.0

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from artiboost_torch.datasets.hoquery import Queries
+from artiboost_torch.parallel.mesh import all_gather_rows
 from artiboost_torch.utils.misc import CONST
 
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
@@ -52,6 +53,17 @@ class PCKMetric:
             self._host_vis.append(torch.cat(self._vis).cpu().numpy())
             self._dists, self._vis = [], []
         return np.concatenate(self._host_dists, 0), np.concatenate(self._host_vis, 0) > 0.5
+
+    def all_reduce(self):
+        """Every rank's distances and visibilities, gathered (once, after a
+        pass; the curve and the AUC do not depend on the rows' order)."""
+        if not (self._dists or self._host_dists):
+            return
+        dists, vis = self._stacked()
+        dists = all_gather_rows(torch.from_numpy(dists)).numpy()
+        vis = all_gather_rows(torch.from_numpy(vis.astype(np.float32))).numpy()
+        self._host_dists, self._host_vis = [dists], [vis]
+        self.count = int(dists.shape[0])
 
     def get_measures(self) -> Dict:
         thresholds = np.linspace(self.val_min, self.val_max, self.steps)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from artiboost_torch.datasets.hoquery import Queries, SynthQueries
+from artiboost_torch.parallel.mesh import all_reduce_sum_
 from artiboost_torch.utils.bop_sym import SymTable, sym_canonical
 from artiboost_torch.utils.misc import resolve_device
 
@@ -34,6 +35,11 @@ class CCVMeter:
         idx = (oid.long(), vid.long(), gid.long())
         self.sum_map.index_put_(idx, values.float() * w, accumulate=True)
         self.count_map.index_put_(idx, w, accumulate=True)
+
+    def all_reduce(self):
+        """Every rank's sum and count maps, summed (once, after a pass)."""
+        both = all_reduce_sum_(torch.stack([self.sum_map, self.count_map]))
+        self.sum_map, self.count_map = both[0], both[1]
 
     def averaged(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (avg_map, seen_mask)."""
@@ -68,6 +74,10 @@ class ValMetricMean3DEPE2:
     def reset(self):
         for m in self.meters.values():
             m.reset()
+
+    def all_reduce(self):
+        for m in self.meters.values():
+            m.all_reduce()
 
     def feed(self, preds: Dict, targs: Dict):
         synth = targs[SynthQueries.IS_SYNTH]
@@ -248,6 +258,9 @@ class ValMetricAR2:
 
     def reset(self):
         self.meter.reset()
+
+    def all_reduce(self):
+        self.meter.all_reduce()
 
     def feed(self, preds: Dict, targs: Dict):
         obj_idx0 = torch.clamp_min(targs[Queries.OBJ_IDX].long() - 1, 0)

@@ -9,6 +9,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from artiboost_torch.parallel import mesh
+
 FLAX_BN_MOMENTUM = 0.9  # nn.BatchNorm(momentum=0.9): ra = 0.9 ra + 0.1 batch
 
 
@@ -53,34 +55,103 @@ class Linear(nn.Linear):
         return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
 
 
-class BatchNorm2d(nn.BatchNorm2d):
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalisation over the global batch of every rank
+    (flax ``nn.BatchNorm`` under a sharded jit). The forward all-reduces the
+    per-channel sum, sum of squares and count and normalises with the biased
+    variance; the backward all-reduces the sums of dy and dy * xhat. ``x``
+    is (N, C, ...), the statistics float32; returns (y float32, the global
+    mean and biased variance for the running averages)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        C = x.shape[1]
+        count = torch.full((1,), float(x.numel() // C), device=x.device)
+        buf = mesh.all_reduce_sum_(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+        n = buf[2 * C]
+        mean = buf[:C] / n
+        var = torch.clamp_min(buf[C:2 * C] / n - mean * mean, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.n, ctx.dims, ctx.shape, ctx.in_dtype = n, dims, shape, x.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * weight.view(shape) + bias.view(shape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, invstd = ctx.saved_tensors
+        dims, shape = ctx.dims, ctx.shape
+        dy = dy.float()
+        sum_dy, sum_dy_xhat = dy.sum(dims), (dy * xhat).sum(dims)
+        # the weight's and bias's gradients stay this rank's: the step
+        # averages every parameter's gradient over ranks after backward
+        glob = mesh.all_reduce_sum_(torch.cat([sum_dy, sum_dy_xhat])) / ctx.n
+        C = sum_dy.shape[0]
+        dx = (weight * invstd).view(shape) * (dy - glob[:C].view(shape)
+                                              - xhat * glob[C:].view(shape))
+        return dx.to(ctx.in_dtype), sum_dy_xhat, sum_dy, None
+
+
+class _FlaxBatchNorm:
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``'s training update:
+    the batch statistics normalise (gradients flow through them) and the
+    running averages take ``ra = 0.9 ra + 0.1 batch`` with the BIASED batch
+    variance ``E[x^2] - E[x]^2``; torch's BatchNorm would fold in the
+    unbiased one, which drifts the variance by n / (n - 1) every step. Under
+    a process group of more than one rank the statistics are the global
+    batch's (``_GlobalBatchNorm``)."""
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor):
+        with torch.no_grad():
+            self.running_mean.copy_(FLAX_BN_MOMENTUM * self.running_mean
+                                    + (1.0 - FLAX_BN_MOMENTUM) * mean)
+            self.running_var.copy_(FLAX_BN_MOMENTUM * self.running_var
+                                   + (1.0 - FLAX_BN_MOMENTUM) * var)
+
+    def _flax_forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=False, eps=self.eps)
+        if mesh.world() > 1:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            self._update_running(mean, var)
+            return y
+        with torch.no_grad():
+            xf = x.float()
+            dims = [0] + list(range(2, x.dim()))
+            mean = xf.mean(dim=dims)
+            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        self._update_running(mean, var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=compute_dtype)``
-    on NCHW.
+    on NCHW, with flax's training update (``_FlaxBatchNorm``).
 
     The statistics and the normalisation are float32 and the output is
     cast to the compute dtype (flax ``_compute_stats`` promotes to float32,
-    ``_normalize`` casts at the end). In training the batch statistics
-    normalise (gradients flow through them) and the running averages take
-    flax's update, ``ra = 0.9 ra + 0.1 batch`` with the BIASED batch
-    variance ``E[x^2] - E[x]^2``; ``nn.BatchNorm2d`` would fold in the
-    unbiased one, which drifts the variance by n / (n - 1) every step."""
+    ``_normalize`` casts at the end)."""
 
     def __init__(self, num_features: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=1.0 - FLAX_BN_MOMENTUM)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            with torch.no_grad():
-                xf = x.float()
-                mean = xf.mean(dim=(0, 2, 3))
-                var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-                self.running_mean.copy_(FLAX_BN_MOMENTUM * self.running_mean
-                                        + (1.0 - FLAX_BN_MOMENTUM) * mean)
-                self.running_var.copy_(FLAX_BN_MOMENTUM * self.running_var
-                                       + (1.0 - FLAX_BN_MOMENTUM) * var)
-            y = F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
-        else:
-            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                             training=False, eps=self.eps)
-        return y.to(self.compute_dtype)
+        return self._flax_forward(x).to(self.compute_dtype)
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on (N, C) in
+    float32, with flax's training update (``_FlaxBatchNorm``); evaluation
+    is ``nn.BatchNorm1d``'s."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=1.0 - FLAX_BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._flax_forward(x)

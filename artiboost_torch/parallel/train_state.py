@@ -8,7 +8,12 @@ the caller assembles the mixed batch (``utils.batching.union_concat``) and
 the step runs forward in train mode (BatchNorm updates its running
 averages there), the criterion, backward, optax's global-norm clip and the
 optimizer step. The learning rate follows the schedule at the count of
-updates made so far, as optax's ``scale_by_schedule`` does."""
+updates made so far, as optax's ``scale_by_schedule`` does.
+
+Under a process group (``parallel/mesh.py``) the step starts from rank 0's
+parameters and buffers and averages the gradients over ranks right after
+backward, before the clip and the optimizer, so the clip sees the global
+norm as JAX's jitted step does (:93-130)."""
 from __future__ import annotations
 
 import math
@@ -17,6 +22,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from artiboost_torch.criterions.criterion import Criterion
+from artiboost_torch.parallel import mesh
 from artiboost_torch.utils.misc import resolve_device
 
 
@@ -93,12 +99,14 @@ def clip_by_global_norm(params: List[torch.Tensor], max_norm: float) -> torch.Te
 class TrainStep:
     """step(batch, loss_draws) -> (preds, losses), both detached.
     ``forward_backward`` and ``update`` are its two halves: after the first,
-    each parameter's ``.grad`` holds the raw gradient. The model is moved to
-    ``device`` (None means CUDA, which raises without a card)."""
+    each parameter's ``.grad`` holds the gradient (averaged over ranks
+    under a process group). The model is moved to ``device`` (None means
+    CUDA, which raises without a card)."""
 
     def __init__(self, model: torch.nn.Module, criterion: Criterion, train_cfg: Dict,
                  device=None):
         self.model, self.criterion = model.to(resolve_device(device)), criterion
+        mesh.broadcast_module(model)
         self.named_params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.params = [p for _, p in self.named_params]
         self.optimizer, self.schedule = build_optimizer(train_cfg, self.named_params)
@@ -111,6 +119,7 @@ class TrainStep:
         preds = self.model(batch)
         total, losses = self.criterion.compute_losses(preds, batch, loss_draws)
         total.backward()
+        mesh.all_reduce_grads(self.params)
         return ({k: v.detach() for k, v in preds.items()},
                 {k: v.detach() for k, v in losses.items()})
 

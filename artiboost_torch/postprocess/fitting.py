@@ -8,19 +8,21 @@ over the batch of pose and shape regularisers, the normalised joint error
 and the finger-planarity prior, so each row's gradient carries the same
 1/B as in JAX. Each step is one autograd backward through MANO on the
 device. IKNet's weights come from ``assets/iknet_tpu.npz``
-(``load_iknet_params``); training them waits for the training scripts'
-slice."""
+(``load_iknet_params``); ``IKNetTrainStep`` trains them (JAX
+``make_iknet_train_step``, :160-217) and ``save_iknet_params`` writes
+that npz (``python -m artiboost_torch.scripts.train_iknet``)."""
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from artiboost_torch.mano.layer import mano_forward
+from artiboost_torch.mano.layer import mano_forward, mano_forward_rotmat
 from artiboost_torch.mano.model import ManoModel, get_mano_model
 from artiboost_torch.postprocess.iknet import IKNet
 from artiboost_torch.utils.misc import asset_path, logger, resolve_device
+from artiboost_torch.utils.transform import aa_to_quat, quat_to_rotmat
 
 IKNET_WEIGHTS = "assets/iknet_tpu.npz"
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.5, 0.5, 1e-8
@@ -77,7 +79,8 @@ class FittingUnit:
                     iknet_state = load_iknet_params(path)
                 else:
                     logger.warning(f"fitting: {IKNET_WEIGHTS} not found; IKNet init is RANDOM "
-                                   "(fit quality degrades; run script/train_iknet.py)")
+                                   "(fit quality degrades; run python -m "
+                                   "artiboost_torch.scripts.train_iknet)")
             if iknet_state is not None:
                 self.iknet.load_state_dict(iknet_state)
             self.iknet = self.iknet.to(self.device).eval()
@@ -145,3 +148,73 @@ class FittingUnit:
                     v_hat = v / (1.0 - ADAM_B2 ** t)
                     p.add_(-self.lr * (m_hat / (torch.sqrt(v_hat) + ADAM_EPS)))
         return self.decode(params[0].detach(), params[1].detach(), root, bone)
+
+
+class IKNetTrainStep:
+    """One Adam step (optax.adam: b1 0.9, b2 0.999, eps 1e-8) of IKNet in
+    train mode on synthetic MANO data (JAX ``make_iknet_train_step``): random
+    poses, their FK joints normalised as ``FittingUnit`` normalises them, and
+    the loss w_quat * the sign-invariant quaternion error plus w_joints * the
+    normalised joints' recovery through ``quat_to_rotmat`` and
+    ``mano_forward_rotmat`` (never through ``quat_to_aa``, singular at
+    identity). BatchNorm takes flax's update (``models/layers.py``).
+
+    ``draws(generator, B)`` -> {"pose" (B, 48) and "shape" (B, 10) standard
+    normal, "sigma" U(0.05, 0.5) (B, 1)}; ``step(draws)`` -> the detached
+    metrics {loss, l_quat, l_joints}."""
+
+    def __init__(self, mano_model: ManoModel, iknet: IKNet, learning_rate: float = 1e-3,
+                 w_quat: float = 1.0, w_joints: float = 10.0):
+        self.mano_model, self.iknet = mano_model, iknet
+        self.weights = (w_quat, w_joints)
+        self.optimizer = torch.optim.Adam(iknet.parameters(), lr=learning_rate,
+                                          betas=(0.9, 0.999), eps=1e-8)
+
+    def draws(self, generator: torch.Generator, B: int = 256) -> Dict[str, torch.Tensor]:
+        device = next(self.iknet.parameters()).device
+        return {"pose": torch.randn(B, 48, generator=generator, device=device),
+                "shape": torch.randn(B, 10, generator=generator, device=device),
+                "sigma": torch.rand(B, 1, generator=generator, device=device) * 0.45 + 0.05}
+
+    def _normalised_joints(self, out) -> torch.Tensor:
+        j = out.joints - out.joints[:, 0:1]
+        return j / torch.clamp_min(_bone(j), 1e-8)
+
+    @torch.no_grad()
+    def sample_batch(self, draws: Dict) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(normalised joints (B, 21, 3), target quaternions (B, 16, 4) with
+        w >= 0, shape (B, 10)) (JAX ``_sample_batch``)."""
+        pose = draws["pose"] * draws["sigma"]
+        shape = draws["shape"] * 0.5
+        j_norm = self._normalised_joints(mano_forward(self.mano_model, pose, shape))
+        q_tgt = aa_to_quat(pose.reshape(-1, 16, 3))
+        q_tgt = q_tgt * torch.sign(q_tgt[..., :1] + 1e-12)
+        return j_norm, q_tgt, shape
+
+    def loss(self, draws: Dict) -> Tuple[torch.Tensor, Dict]:
+        j_norm, q_tgt, shape = self.sample_batch(draws)
+        _, quat = self.iknet(j_norm)
+        l_quat = torch.mean(torch.minimum(torch.sum((quat - q_tgt) ** 2, -1),
+                                          torch.sum((quat + q_tgt) ** 2, -1)))
+        out = mano_forward_rotmat(self.mano_model, quat_to_rotmat(quat), shape)
+        l_joints = torch.mean(torch.sum((self._normalised_joints(out) - j_norm) ** 2, -1))
+        w_quat, w_joints = self.weights
+        loss = w_quat * l_quat + w_joints * l_joints
+        return loss, {"loss": loss, "l_quat": l_quat, "l_joints": l_joints}
+
+    def __call__(self, draws: Dict) -> Dict:
+        self.iknet.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = self.loss(draws)
+        loss.backward()
+        self.optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+
+
+def save_iknet_params(iknet: IKNet, path: str) -> None:
+    """The JAX package's flat npz of IKNet's flax variables ("params/...",
+    "batch_stats/..."), which ``load_iknet_params`` here and there read."""
+    from artiboost_torch.utils.convert import iknet_to_flax, save_flax_npz
+
+    save_flax_npz(iknet_to_flax(iknet.state_dict()), path)

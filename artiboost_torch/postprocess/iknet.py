@@ -10,13 +10,15 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from artiboost_torch.models.layers import BatchNorm1d
 from artiboost_torch.utils.transform import quat_to_aa
 
 
 class IKNet(nn.Module):
     """Six Dense + BatchNorm + ReLU blocks, then a 64-wide quaternion head,
     each quaternion normalised (eps 1e-8). BatchNorm as flax's: eps 1e-5,
-    running statistics with momentum 0.9 (torch's 0.1)."""
+    running statistics with momentum 0.9 and, in training, the biased batch
+    variance (``models/layers.py`` ``BatchNorm1d``)."""
 
     def __init__(self, njoints: int = 21,
                  hidden_size_pose: Sequence[int] = (256, 512, 1024, 1024, 512, 256)):
@@ -24,8 +26,7 @@ class IKNet(nn.Module):
         self.njoints = njoints
         widths = [njoints * 3, *hidden_size_pose]
         self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
-        self.bn = nn.ModuleList(nn.BatchNorm1d(w, eps=1e-5, momentum=0.1)
-                                for w in hidden_size_pose)
+        self.bn = nn.ModuleList(BatchNorm1d(w) for w in hidden_size_pose)
         self.head = nn.Linear(widths[-1], 16 * 4)
 
     def forward(self, joints: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

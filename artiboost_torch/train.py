@@ -30,17 +30,32 @@ the losses every ``LOG_EVERY`` train steps and each evaluator after its
 pass; ``profile`` traces epoch 0 with ``torch.profiler``
 (``utils/profiling.py``).
 
+Data parallelism (``train_artiboost.py:189-225``, ``opt.py:26-44``):
+``--multihost`` joins a process group (``parallel/mesh.py``; the coordinator
+``host:port``, ``--num_processes`` and ``--process_id``, or torchrun's
+environment), and ``--n_devices N`` in one process spawns N local ranks,
+one a card. Each rank trains on its rows of every global batch; the
+gradients, BatchNorm's statistics and every metric reduce over ranks, so
+every rank holds the same parameters and CCV weight map. Rank 0 owns the
+experiment directory, the summarizer and the trace; a ``--resume`` reads
+the same checkpoint on every rank.
+
 Usage:
     python -m artiboost_torch.train --cfg config/synthetic_smoke.yaml \\
         [--epochs N] [--batch_size B] [--device cuda|cpu] [--exp_id NAME] [--snapshot 50] \\
         [--test_freq 5] [--profile_dir DIR] [--profile_steps 20] [--workers 20] [--allow_dirty]
     python -m artiboost_torch.train --resume exp/<exp_id>_<timestamp> [--evaluate] [--device cpu]
+    python -m artiboost_torch.train --cfg ... --n_devices 2 [--device cpu]
+    python -m artiboost_torch.train --cfg ... --multihost --coordinator localhost:29500 \\
+        --num_processes 2 --process_id {0,1}
+    torchrun --nproc_per_node 4 -m artiboost_torch.train --cfg ... --multihost
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+import socket
 import time
 from collections import defaultdict
 from typing import Dict, Optional, Tuple
@@ -53,6 +68,7 @@ from artiboost_torch.datasets.hodata import padded_host_loader
 from artiboost_torch.datasets.synthetic import build_dataset
 from artiboost_torch.metrics.evaluator import Evaluator, build_evaluator
 from artiboost_torch.models.arch import build_arch
+from artiboost_torch.parallel import mesh
 from artiboost_torch.parallel.train_state import TrainStep, eval_step
 from artiboost_torch.utils import profiling
 from artiboost_torch.utils.batching import union_concat
@@ -60,8 +76,8 @@ from artiboost_torch.utils.config import load_config
 from artiboost_torch.utils.misc import LOG_FORMAT, logger, resolve_device
 from artiboost_torch.utils.pretrained import load_arch_pretrained
 from artiboost_torch.utils.prefetch import IN_PLACE, HostPipeline
-from artiboost_torch.utils.recorder import Recorder
-from artiboost_torch.utils.summarizer import Summarizer
+from artiboost_torch.utils.recorder import NullRecorder, Recorder
+from artiboost_torch.utils.summarizer import NullSummarizer, Summarizer
 
 LOG_EVERY = 20  # train steps between loss summaries (train_artiboost.py:92)
 
@@ -112,7 +128,9 @@ def train_epoch(loader: ArtiBoostLoader, step: TrainStep, evaluator: Evaluator,
     ``real wait`` is the time the step waited for one); their device
     half (upload, flip, warp) is the stage ``real batch``. Each step is a
     trace range ``train#<optimizer step>``; a running trace stops after
-    step ``stop_trace_after``."""
+    step ``stop_trace_after``. Under a process group each step trains on
+    this rank's rows; "images" counts the global batches', the evaluator
+    and "final_loss" hold the global figures after the epoch."""
     evaluator.reset_all()
     out = {"steps": 0, "images": 0, "final_loss": [], "real_host": [0.0, 0.0]}
     real_data = loader.real_dataset
@@ -124,7 +142,7 @@ def train_epoch(loader: ArtiBoostLoader, step: TrainStep, evaluator: Evaluator,
         real = None
         if hb is not None:
             with profiling.trace("data/real_device"):
-                real = real_data.device_half(hb)
+                real = loader.real_part(hb)
             out["real_host"] = [a + b for a, b in zip(out["real_host"], hb.seconds)]
             t = timer.add("real batch", t)
         with profiling.step_trace("train", step.step):
@@ -142,8 +160,11 @@ def train_epoch(loader: ArtiBoostLoader, step: TrainStep, evaluator: Evaluator,
         if bidx == stop_trace_after and profiling.stop_trace():
             t = timer.mark()
         out["steps"] += 1
-        out["images"] += int(batch["image"].shape[0])
+        out["images"] += int(batch["image"].shape[0]) * mesh.world()
         out["final_loss"].append(losses["final_loss"])
+    if mesh.world() > 1 and out["final_loss"]:
+        out["final_loss"] = list(mesh.all_reduce_mean(torch.stack(out["final_loss"])))
+    evaluator.all_reduce()
     out["seconds"] = timer.mark() - t_start
     return out
 
@@ -162,7 +183,8 @@ def val_epoch(loader: ArtiBoostLoader, model: torch.nn.Module, criterion,
         evaluator.feed_all(preds, batch, losses)
         t = timer.add("metric+mining", t)
         out["batches"] += 1
-        out["images"] += int(batch["image"].shape[0])
+        out["images"] += int(batch["image"].shape[0]) * mesh.world()
+    evaluator.all_reduce()
     return out
 
 
@@ -174,14 +196,18 @@ def test_epoch(test_data, batch_size: int, model: torch.nn.Module, criterion,
     SAMPLE_VALID (``padded_host_loader``, its host halves prefetched by
     ``host`` as the train pass's are), through the model with its running
     statistics; the evaluator refilled. Charged to the stage ``test pass``.
+    Under a process group each rank runs its rows of every batch.
     -> {"batches", "images"}."""
     evaluator.reset_all()
     out = {"batches": 0, "images": len(test_data)}
     t = timer.mark()
-    for batch in padded_host_loader(test_data, batch_size, host=host):
+    rows = mesh.rows(batch_size) if mesh.world() > 1 else None
+    for batch in padded_host_loader(test_data, batch_size, host=host, rows=rows):
         preds, losses = eval_step(model, criterion, batch, draws.loss(criterion))
-        evaluator.feed_all(preds, batch, losses)
+        n_valid = min(batch_size, len(test_data) - out["batches"] * batch_size)
+        evaluator.feed_all(preds, batch, losses, n_global=n_valid)
         out["batches"] += 1
+    evaluator.all_reduce()
     timer.add("test pass", t)
     return out
 
@@ -333,9 +359,24 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
         if host is not None:
             host.close()
 
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, argv, n_ranks: int, port: int):
+    """One of ``--n_devices``'s spawned ranks."""
+    main(list(argv) + ["--multihost", "--coordinator", f"localhost:{port}",
+                       "--num_processes", str(n_ranks), "--process_id", str(rank)])
+
+
 def main(argv=None) -> Dict:
     """The command line (``artiboost_tpu/opt.py``'s flags that the port
-    runs) -> ``run``'s result, with the experiment's ``dump_path``."""
+    runs) -> ``run``'s result, with the experiment's ``dump_path`` (None on
+    a rank other than 0). ``--n_devices N`` spawns N ranks and returns
+    {"ranks": N} once all have finished."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cfg", default=None)
     ap.add_argument("--epochs", type=int, default=None)
@@ -358,22 +399,54 @@ def main(argv=None) -> Dict:
                     help="host data worker threads (image decode)")
     ap.add_argument("--allow_dirty", action="store_true",
                     help="record a named experiment from an uncommitted tree")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join a data-parallel process group (torch.distributed)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's rendezvous (omit under torchrun)")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--n_devices", type=int, default=None,
+                    help="spawn this many local ranks, one a card (without --multihost)")
+    ap.add_argument("--gpu_id", default=None,
+                    help="compatibility no-op (the rank picks its card)")
     args = ap.parse_args(argv)
+    if not (args.cfg or args.resume):
+        ap.error("--cfg is required unless --resume is given")
     logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt="%H:%M:%S")
     device = resolve_device(args.device)
+    if args.n_devices and args.n_devices > 1 and not args.multihost:
+        import sys
+
+        import torch.multiprocessing as mp
+
+        mp.spawn(_rank_main, args=(sys.argv[1:] if argv is None else argv, args.n_devices,
+                                   _free_port()), nprocs=args.n_devices, join=True)
+        return {"ranks": args.n_devices}
+    joined = args.multihost and mesh.init_distributed(
+        args.coordinator, args.num_processes, args.process_id, device_type=device.type)
+    try:
+        return _train_main(args, mesh.rank_device(device))
+    finally:
+        if joined:
+            mesh.close()
+
+
+def _train_main(args, device: torch.device) -> Dict:
     if args.resume:
         if args.cfg:
             logger.warning(f"--cfg is replaced by {args.resume}/dump_cfg.yaml on --resume")
         cfg = load_config(os.path.join(args.resume, "dump_cfg.yaml"))
-    elif args.cfg:
-        cfg = load_config(args.cfg)
     else:
-        ap.error("--cfg is required unless --resume is given")
+        cfg = load_config(args.cfg)
     if args.batch_size:
         cfg.setdefault("TRAIN", {})["BATCH_SIZE"] = args.batch_size
-    recorder = Recorder(args.exp_id, cfg, resume_path=args.resume, allow_dirty=args.allow_dirty)
-    summarizer = Summarizer(recorder.dump_path)
-    profile = (args.profile_dir, args.profile_steps) if args.profile_dir else None
+    if mesh.rank() == 0:
+        recorder = Recorder(args.exp_id, cfg, resume_path=args.resume,
+                            allow_dirty=args.allow_dirty)
+        summarizer = Summarizer(recorder.dump_path)
+        profile = (args.profile_dir, args.profile_steps) if args.profile_dir else None
+    else:
+        recorder, summarizer, profile = NullRecorder(args.resume), NullSummarizer(), None
     try:
         out = run(cfg, epochs=args.epochs, device=device, recorder=recorder,
                   resume=bool(args.resume), snapshot=args.snapshot, summarizer=summarizer,

@@ -22,6 +22,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from artiboost_torch.parallel.mesh import shard_normaliser
+
 # reserved batch key: {query name: (B,) float32, 1 = annotated / 0 = filled}
 KEY_VALID = "_key_valid"
 
@@ -139,7 +141,8 @@ def key_validity(targs: Dict, *keys) -> Optional[torch.Tensor]:
 
 def masked_sample_mean(per_sample: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean of per-sample scalars over valid samples (the plain mean when
-    mask is None); an all-invalid batch gives 0, not NaN."""
+    mask is None); an all-invalid batch gives 0, not NaN. Under a process
+    group the valid count is the global batch's (``mesh.shard_normaliser``)."""
     if mask is None:
         return torch.mean(per_sample)
-    return torch.sum(per_sample * mask) / torch.clamp_min(torch.sum(mask), 1e-8)
+    return torch.sum(per_sample * mask) / torch.clamp_min(shard_normaliser(torch.sum(mask)), 1e-8)

@@ -11,7 +11,10 @@ weights, gradients and statistics against the flax trees.
 ``hopregnet_from_flax``, ``honet_from_flax`` and
 ``simple_baseline_from_flax`` do the same for the other three model
 families (``FROM_FLAX`` maps an ``ARCH.TYPE`` to its converter);
-``refinenet_from_flax`` loads the grasp refiner's flax params."""
+``refinenet_from_flax`` loads the grasp refiner's flax params and
+``iknet_from_flax`` IKNet's variables; ``refinenet_to_flax`` and
+``iknet_to_flax`` are their inverses, which the trainers save through
+``save_flax_npz`` in the JAX package's flat npz."""
 from __future__ import annotations
 
 import re
@@ -285,3 +288,69 @@ def hybrid_baseline_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict[str, Dict]
             node = node.setdefault(p, {})
         node[path[-1]] = _to_flax_layout(t, layout)
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A copy: a CPU tensor's ``.numpy()`` shares its memory."""
+    return t.detach().cpu().numpy().copy()
+
+
+def _dense_to_flax(sd: Dict, prefix: str) -> Dict[str, np.ndarray]:
+    """nn.Linear weight (out, in) -> flax Dense kernel (in, out)."""
+    return {"kernel": _np(sd[prefix + ".weight"]).T, "bias": _np(sd[prefix + ".bias"])}
+
+
+def _norm_to_flax(sd: Dict, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[prefix + ".weight"]), "bias": _np(sd[prefix + ".bias"])}
+
+
+def refinenet_to_flax(sd: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of ``refinenet_from_flax``: a ``RefineNet`` state dict ->
+    its flax params (numpy leaves, without the "params" level)."""
+    params = {"LayerNorm_0": _norm_to_flax(sd, "ln0"), "Dense_0": _dense_to_flax(sd, "dpose"),
+              "Dense_1": _dense_to_flax(sd, "dtrans")}
+    k = 0
+    while f"blocks.{k}.fc1.weight" in sd:
+        pre, blk = f"blocks.{k}.", {}
+        if pre + "proj.weight" in sd:
+            blk["Dense_0"] = _dense_to_flax(sd, pre + "proj")
+        n = len(blk)
+        blk[f"Dense_{n}"] = _dense_to_flax(sd, pre + "fc1")
+        blk[f"Dense_{n + 1}"] = _dense_to_flax(sd, pre + "fc2")
+        blk["LayerNorm_0"] = _norm_to_flax(sd, pre + "ln1")
+        blk["LayerNorm_1"] = _norm_to_flax(sd, pre + "ln2")
+        params[f"ResBlock_{k}"] = blk
+        k += 1
+    return params
+
+
+def iknet_to_flax(sd: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of ``iknet_from_flax``: an ``IKNet`` state dict -> its
+    flax variables {"params", "batch_stats"}."""
+    params, stats = {}, {}
+    n = 0
+    while f"bn.{n}.weight" in sd:
+        params[f"Dense_{n}"] = _dense_to_flax(sd, f"dense.{n}")
+        params[f"BatchNorm_{n}"] = _norm_to_flax(sd, f"bn.{n}")
+        stats[f"BatchNorm_{n}"] = {"mean": _np(sd[f"bn.{n}.running_mean"]),
+                                   "var": _np(sd[f"bn.{n}.running_var"])}
+        n += 1
+    params[f"Dense_{n}"] = _dense_to_flax(sd, "head")
+    return {"params": params, "batch_stats": stats}
+
+
+def save_flax_npz(variables: Dict, path: str) -> None:
+    """Nested dict of numpy arrays -> the flat npz ``load_flax_npz`` reads
+    (keys joined by '/', as flax's ``flatten_dict`` and the JAX package's
+    ``save_refiner_params`` / ``save_iknet_params`` write them)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, scope):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, scope + (k,))
+            else:
+                flat["/".join(scope + (k,))] = np.asarray(v)
+
+    walk(variables, ())
+    np.savez(path, **flat)

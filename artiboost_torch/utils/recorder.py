@@ -241,3 +241,32 @@ class Recorder:
             if isinstance(metric, VisMetric) and metric.images is not None:
                 metric.images.save(path + f"_{type(metric).__name__}.png")
         return measures
+
+
+class NullRecorder:
+    """The recorder of a rank other than 0 in a data-parallel run: rank 0
+    owns the experiment directory, its evaluations and checkpoints
+    (``train_artiboost.py:189-221``). A resume reads the experiment's
+    checkpoint on every rank, the same file rank 0 reads, where the JAX
+    package raises on the other ranks (:205-207)."""
+
+    dump_path = None
+
+    def __init__(self, resume_path: Optional[str] = None):
+        self.ckpt_dir = (os.path.abspath(os.path.join(resume_path, "checkpoints"))
+                         if resume_path else None)
+
+    resume_checkpoints = Recorder.resume_checkpoints
+    resume_artiboost_state = Recorder.resume_artiboost_state
+
+    def record_arch(self, *a, **k):
+        pass
+
+    def record_evaluator(self, *a, **k):
+        pass
+
+    def record_checkpoints(self, *a, **k):
+        pass
+
+    def close(self):
+        pass

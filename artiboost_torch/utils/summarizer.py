@@ -28,3 +28,16 @@ class Summarizer:
 
     def close(self):
         self.writer.close()
+
+
+class NullSummarizer:
+    """The summarizer of a rank other than 0: rank 0 writes the events."""
+
+    def summarize_losses(self, *a, **k):
+        pass
+
+    def summarize_evaluator(self, *a, **k):
+        pass
+
+    def close(self):
+        pass

@@ -85,6 +85,29 @@ def quat_to_aa(quat: torch.Tensor) -> torch.Tensor:
     return torch.where(small, aa_small, axis * angle)
 
 
+def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) wxyz, normalised (eps 1e-8) -> rotation matrix
+    (..., 3, 3)."""
+    q = quat / torch.clamp_min(torch.linalg.norm(quat, dim=-1, keepdim=True), 1e-8)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def aa_to_quat(aa: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> quaternion (..., 4) wxyz, xyz = aa / 2 below
+    1e-6 rad."""
+    theta = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    axis = aa / torch.clamp_min(theta, 1e-8)
+    half = theta / 2.0
+    xyz = torch.where(theta < 1e-6, aa / 2.0, axis * torch.sin(half))
+    return torch.cat([torch.cos(half), xyz], dim=-1)
+
+
 def rotmat_to_aa(rot: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> axis-angle (..., 3)."""
     return quat_to_aa(rotmat_to_quat(rot))

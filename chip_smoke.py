@@ -116,13 +116,39 @@ Phases, each fatal on failure:
      launch an overlay tile (32), finite measures; the first tile's raster
      held against B2's twin and timed; it prints the eval pass's, the
      FittingUnit's and the draw's ms per batch of 128.
-Every launch counter is zeroed just before phases 4 to 11 and 13 and each
-run of phase 12, and read just after each. TF32 is off. The lines before
-the last: the kernel table as one JSON object (B1 launches from phases 8 to
-12, B2 from 8 to 13, summed and by phase, B3 launches from phase 6) and the
-card's name and power limit; the last line: the ok JSON.
+ 14. data parallelism at full width: the released Clas recipe through
+     ``artiboost_torch.train.main``, synth-only (CONFIG_LEN_TRAIN 512: 4
+     steps of a global batch of 128, VAL_LEN 128, 1 epoch), run by 2
+     processes joined with ``--multihost --coordinator localhost:<port>
+     --num_processes 2 --process_id r`` on the one card (gloo), then by 1
+     process with ``--multihost`` (NCCL), then ``--resume`` of the 2-rank
+     run by 2 processes, then the 2-rank run in float32. Each process is this script with ``--dp-worker`` and a
+     timeout. It checks that parameters, BatchNorm buffers, Adam's moments,
+     the CCV weight and occurrence maps and every draw are bit-equal across
+     the ranks, that each rank launched B1 once a step and a val batch at
+     B = 64 and that B1 is bit-equal to its twin on the first of them, that
+     the losses are within DP_LOSS_RTOL of the 1-process run's and, in
+     float32, the first step's gradients within DP_GRAD_RTOL of those one
+     process computes from the same batch, that the 1-process run joined
+     NCCL, and that the resume restored
+     the saved state bit for bit on both ranks;
+ 15. the trainers: ``artiboost_torch.scripts.train_refiner`` (100 steps at
+     --batch 256 --obj_points 2048) and ``train_iknet`` (200 steps), each
+     writing its npz to a temporary directory: finite losses, the mean of
+     the last 10 steps below that of the first 10, each npz loaded back in
+     the port equal to the trained net; ms a step and the held-out figures.
+Every launch counter is zeroed just before phases 4 to 11 and 13, each
+run of phase 12 and, in its own process, each run of phase 14, and read
+just after each. TF32 is off. The lines before the last: the kernel table
+as one JSON object (B1 launches from phases 8 to 12 and 14, the two ranks'
+of phase 14 also apart, B2 from 8 to 13, summed and by phase, B3 launches
+from phase 6) and the card's name and power limit; the last line: the ok
+JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
+       (``python3 chip_smoke.py --dp-worker <json>`` is phase 14's own process;
+       ``python3 chip_smoke.py --dp-cards`` runs phase 14's recipe one rank a
+       card over every card of a machine of 2 or more, by NCCL)
 """
 import copy
 import json
@@ -133,6 +159,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -144,6 +171,17 @@ RASTER_OPS_PER_LANE = 25        # pass-1 operations per (pixel, face)
 # tiles are those of the JAX package's users, and one of 4096 pixels.
 BINNED_CHECK_TILES = ((16, 8), (8, 4), (16, 5), (32, 8))
 BINNED_FULL_TILES = ((64, 8), (64, 16), (128, 16), (128, 32))
+# phase 14 (``dp_readings``): over N ranks against a 1-process run, the
+# first and last steps' losses, relative. The recipe's bf16 gradients part
+# from one process's on the same batch by a quarter to a half of their norm
+# (convolutions and their weight gradients over 128 / N rows in place of
+# 128), and the parameters' gap to a 1-process run is noise on the card
+# (the refiner's and MANO's last bits move with the rows, the rasterizer
+# flips edge pixels on them), so both are printed, not bounded; a float32
+# run holds the first step's gradients against one process's on the same
+# batch. The readings, and those of planted faults, are in PERF.md.
+DP_LOSS_RTOL = {"first": 2e-3, "last": 5e-3}
+DP_GRAD_RTOL = 0.025
 
 
 def fail(msg: str):
@@ -789,10 +827,10 @@ def real_data_recipe(card: str, kernels: dict, hold, read_counts, zero_counts, t
                                arch.model_list[0].state_dict().items() if k.startswith("backbone.")}
         return loaded
 
-    def device_half(self, host):
+    def device_half(self, host, **kw):
         if self.data_split == "test":
             records["test_idx"].append(list(host.sample_idx))
-        return orig["device_half"](self, host)
+        return orig["device_half"](self, host, **kw)
 
     def raster(*args, **kw):
         if records["raster"] is None:
@@ -1165,6 +1203,485 @@ def submission(card: str, real: dict, hold, read_counts, zero_counts) -> dict:
     return launches
 
 
+DP_RANK_TIMEOUT_S = 600  # each phase-14 process; its process group times out at 300 s
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_worker(spec: dict):
+    """One process of phase 14 (``chip_smoke.py --dp-worker <json>``):
+    ``artiboost_torch.train.main`` with ``--multihost`` as rank ``rank`` of
+    ``world`` in ``workdir``, B1's launches and batch sizes counted around
+    it, the state digested where the recorder saves it and where a resume
+    restores it, then B1 held against its twin on the first rows it
+    rasterized; the record goes to ``out`` as JSON, and with ``params`` the
+    trainable parameters as the step started and ended, the first step's
+    gradients (averaged over the ranks, before the clip) and, over more
+    than one rank, those one process computes from the same batch, twice,
+    go there (``torch.save``)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    os.chdir(spec["workdir"])
+    import logging
+
+    from artiboost_torch.utils.misc import LOG_FORMAT
+
+    logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt="%H:%M:%S")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
+
+    from artiboost_torch import train
+    from artiboost_torch.artiboost import renderer
+    from artiboost_torch.artiboost.loader import ArtiBoostLoader, DrawSource
+    from artiboost_torch.models import layers
+    from artiboost_torch.ops.rasterizer_cuda import (finish_uv_raster, prepare_raster, raster_rgb,
+                                                     raster_rgb_binned, raster_uv)
+    from artiboost_torch.parallel import mesh
+    from artiboost_torch.parallel.train_state import TrainStep
+    from artiboost_torch.utils.recorder import NullRecorder, Recorder
+
+    rec = {"uv_sizes": [], "saved": {}, "restored": {}, "draws": []}
+    uv_call, params = {}, {}
+    orig = {"uv": renderer.rasterize_batch_uv, "close": mesh.close, "init": TrainStep.__init__,
+            "forward_backward": TrainStep.forward_backward,
+            "triplets": DrawSource.triplets, "synth": DrawSource.synth,
+            "save": (Recorder.record_checkpoints, NullRecorder.record_checkpoints),
+            "resume": (Recorder.resume_checkpoints, NullRecorder.resume_checkpoints),
+            "load": ArtiBoostLoader.load_state_dict}
+
+    def step_digests(step):
+        opt = [v for s in step.optimizer.state.values() for v in s.values()
+               if isinstance(v, torch.Tensor)]
+        return {"params": _digest(step.model.parameters()),
+                "buffers": _digest(step.model.buffers()), "optimizer": _digest(opt),
+                "step": step.step}
+
+    def loader_digests(state):
+        return {k: _digest([torch.as_tensor(np.asarray(state[k]))])
+                for k in ("sample_weight_map", "occurrence_map", "rng_state")}
+
+    def uv(*args, **kw):
+        rec["uv_sizes"].append(int(args[0].shape[0]))
+        uv_call.setdefault("call", (args, kw))
+        return orig["uv"](*args, **kw)
+
+    def init_step(self, *args, **kw):
+        orig["init"](self, *args, **kw)
+        params.setdefault("init", [p.detach().cpu().clone() for p in self.params])
+
+    class _OneRankBatchNorm:
+        """``models.layers``'s view of the mesh for ``one_process_grads``:
+        BatchNorm keeps its process-group formula with identity
+        collectives, so both sides of the comparison run the same
+        arithmetic on rows split or whole."""
+        world = staticmethod(lambda: 2)
+        all_reduce_sum_ = staticmethod(lambda t: t)
+
+    def one_process_grads(step, batch, loss_draws):
+        """The first step's gradients as one process computes them from the
+        same parameters on the whole global batch (every rank's rows,
+        gathered): the step with every collective off; BatchNorm's buffers
+        and the ranks' gradients are put back after."""
+        import torch.distributed as dist
+
+        n = int(batch["image"].shape[0])
+        rows = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor) and v.dim()
+                and v.shape[0] == n}
+        shapes = [None] * mesh.world()
+        dist.all_gather_object(shapes, {k: (tuple(v.shape), str(v.dtype)) for k, v in rows.items()})
+        check(all(s == shapes[0] for s in shapes), f"the ranks' batches differ in shape: {shapes}")
+        full = dict(batch, **{k: mesh.all_gather_rows(v.to(torch.uint8)).bool()
+                              if v.dtype == torch.bool else mesh.all_gather_rows(v)
+                              for k, v in rows.items()})
+        grads, buffers = [p.grad for p in step.params], [b.clone() for b in step.model.buffers()]
+        active, mesh.active = mesh.active, lambda: False
+        layers.mesh = _OneRankBatchNorm
+        try:
+            orig["forward_backward"](step, full, loss_draws)
+        finally:
+            mesh.active, layers.mesh = active, mesh
+        one = [p.grad.detach().cpu().clone() for p in step.params]
+        for p, g in zip(step.params, grads):
+            p.grad = g
+        with torch.no_grad():
+            for b, saved in zip(step.model.buffers(), buffers):
+                b.copy_(saved)
+        return one
+
+    def forward_backward(self, batch, loss_draws):
+        out = orig["forward_backward"](self, batch, loss_draws)
+        if "grad" not in params:
+            params["grad"] = [p.grad.detach().cpu().clone() for p in self.params]
+            if mesh.world() > 1:
+                params["grad_one"] = one_process_grads(self, batch, loss_draws)
+                params["grad_again"] = one_process_grads(self, batch, loss_draws)
+        return out
+
+    def leaves(tree):
+        return ([t for k in sorted(tree) for t in leaves(tree[k])] if isinstance(tree, dict)
+                else [tree])
+
+    def triplets(self, space, n, replace):
+        flat = orig["triplets"](self, space, n, replace)
+        rec["draws"].append(["triplets", _digest([flat]), _digest([space.blacklist_map])])
+        return flat
+
+    def synth(self, synth_fn, B):
+        draws = orig["synth"](self, synth_fn, B)
+        rec["draws"].append(["synth", _digest(leaves(draws))])
+        return draws
+
+    def close():
+        rec["backend"], rec["world"] = mesh.backend(), mesh.world()
+        orig["close"]()
+
+    def saving(fn):
+        def wrapped(self, step, epoch, artiboost_state=None, snapshot=10):
+            rec["saved"] = dict(step_digests(step), **loader_digests(artiboost_state))
+            return fn(self, step, epoch, artiboost_state, snapshot)
+        return wrapped
+
+    def resuming(fn):
+        def wrapped(self, step, path=None):
+            epoch = fn(self, step, path)
+            rec["restored"].update(step_digests(step), epoch=epoch)
+            return epoch
+        return wrapped
+
+    def load_state_dict(self, state):
+        orig["load"](self, state)
+        rec["restored"].update(loader_digests(self.state_dict()))
+
+    renderer.rasterize_batch_uv, mesh.close, TrainStep.__init__ = uv, close, init_step
+    TrainStep.forward_backward = forward_backward
+    DrawSource.triplets, DrawSource.synth = triplets, synth
+    Recorder.record_checkpoints, NullRecorder.record_checkpoints = map(saving, orig["save"])
+    Recorder.resume_checkpoints, NullRecorder.resume_checkpoints = map(resuming, orig["resume"])
+    ArtiBoostLoader.load_state_dict = load_state_dict
+    argv = (["--resume", spec["resume"]] if spec.get("resume") else ["--cfg", spec["cfg"]])
+    argv += ["--epochs", "1", "--test_freq", "0", "--multihost", "--coordinator",
+             f"localhost:{spec['port']}", "--num_processes", str(spec["world"]),
+             "--process_id", str(spec["rank"])]
+    kernels = (raster_uv, raster_rgb, raster_rgb_binned)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = {k.name: k.launches for k in kernels}
+    hist = out["history"]
+    rec["final_loss"] = [float(v) for h in hist for v in h["train"]["final_loss"]]
+    rec["steps"] = sum(h["train"]["steps"] for h in hist)
+    rec["val_batches"] = sum(h.get("val", {}).get("batches", 0) for h in hist)
+    rec["train_seconds"] = sum(h["train"]["seconds"] for h in hist)
+    rec["images"] = sum(h["train"]["images"] for h in hist)
+    rec["dump_path"] = (os.path.join(spec["workdir"], out["dump_path"])
+                        if out["dump_path"] else None)
+    rec["final"] = dict(step_digests(out["step"]), **loader_digests(out["loader"].state_dict()))
+    rec["device"] = str(out["step"].params[0].device)
+    if spec.get("params"):
+        params["final"] = [p.detach().cpu().clone() for p in out["step"].params]
+        torch.save(params, spec["params"])
+    if not spec.get("resume"):
+        inp = prepare_raster(*uv_call["call"][0], **uv_call["call"][1])
+        err, equal = compare(raster_uv, finish_uv_raster, inp, torch)
+        rec["uv_hold"] = {"B": int(inp.geom.shape[0]), "max_abs_err": err, "equal": equal}
+    with open(spec["out"], "w") as f:
+        json.dump(rec, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_launch(world: int, tmp: str, tag: str, worker=None, **spec) -> list:
+    """``world`` phase-14 processes started together (``worker``: the
+    command that starts one, before its JSON spec) -> their records, rank
+    0's with ``params``, the path of its parameters; a process that fails or
+    outlives DP_RANK_TIMEOUT_S fails the phase."""
+    port = _free_port()
+    worker = worker or [sys.executable, os.path.abspath(__file__), "--dp-worker"]
+    procs, specs = [], []
+    for r in range(world):
+        specs.append(dict(spec, rank=r, world=world, port=port, workdir=tmp,
+                          out=os.path.join(tmp, f"{tag}_rank{r}.json"),
+                          params=None if r or spec.get("resume") else os.path.join(tmp,
+                                                                                   f"{tag}.pt")))
+        procs.append(subprocess.Popen(worker + [json.dumps(specs[-1])], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        fail(f"phase 14 {tag}: a rank outlived {DP_RANK_TIMEOUT_S} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"phase 14 {tag} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    records = []
+    for s in specs:
+        with open(s["out"]) as f:
+            records.append(dict(json.load(f), params=s["params"]))
+    return records
+
+
+def _dp_config(tmp: str, dtype: str = "bfloat16") -> str:
+    """The released Clas recipe cut to 4 steps of a global 128 and one val
+    batch, its convolutions and matmuls in ``dtype``, written to ``tmp``
+    -> its path."""
+    import yaml
+
+    from artiboost_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
+    cfg["MANAGER"].update(CONFIG_LEN_TRAIN=512, VAL_LEN=128)
+    cfg["TRAIN"].update(EVAL_FREQ=1, VAL_START_EPOCH=0)
+    cfg["ARCH"]["DTYPE"] = dtype
+    path = os.path.join(tmp, f"dp_{dtype}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def dp_readings(ranks: list, one: Optional[list] = None) -> dict:
+    """An N-rank run, by itself and against a 1-process run: ``grad``, the
+    first step's gradients apart from those one process computes on the
+    same global batch in the same run, and ``again``, one process's
+    computed twice, apart, each as a share of their norm (L2 over every
+    trainable parameter, in float64); with ``one``, each step's loss apart,
+    relative (``first``, ``last``, ``steps``), ``gap``, how far the
+    parameters end apart as a share of how far that run moved them, and
+    ``same_start``, whether both started from the same bits."""
+    import torch
+
+    def l2(xs, ys):
+        return math.sqrt(sum(float(((x.double() - y.double()) ** 2).sum())
+                             for x, y in zip(xs, ys)))
+
+    a = torch.load(ranks[0]["params"])
+    norm = l2(a["grad_one"], [0 * g for g in a["grad_one"]])
+    got = {"grad": l2(a["grad"], a["grad_one"]) / norm,
+           "again": l2(a["grad_again"], a["grad_one"]) / norm}
+    if one:
+        b = torch.load(one[0]["params"])
+        rel = [abs(x - y) / abs(y) for x, y in zip(ranks[0]["final_loss"], one[0]["final_loss"])]
+        got.update(first=rel[0], last=rel[-1], steps=rel,
+                   gap=l2(a["final"], b["final"]) / l2(b["final"], b["init"]),
+                   same_start=all(torch.equal(x, y) for x, y in zip(a["init"], b["init"])))
+    return got
+
+
+def _dp_check(ranks: list, one: Optional[list], backend: str, devices: list,
+              label: str) -> dict:
+    """The records of an N-rank run, and against the 1-process run's if
+    ``one``: the backend and cards, 4 steps and a val batch of 128 global
+    rows, one B1 launch a step and a val batch at 128 / N rows, B1
+    bit-equal to its twin on each rank's first rows, every rank's state
+    bit-equal; with ``one``, the 1-process run on NCCL, both runs from the
+    same start and the losses within DP_LOSS_RTOL; without it (a float32
+    run), the first step's gradients within DP_GRAD_RTOL of one process's
+    on the same batch -> ``dp_readings`` with ``uv_err``."""
+    n = len(ranks)
+    for r, rec in enumerate(ranks):
+        check(rec["backend"] == backend and rec["world"] == n and rec["device"] == devices[r],
+              f"{label} rank {r}: backend {rec['backend']}, world {rec['world']}, "
+              f"{rec['device']}")
+        check(rec["steps"] == 4 and rec["val_batches"] == 1 and rec["images"] == 512,
+              f"{label} rank {r}: {rec['steps']} steps, {rec['val_batches']} val batches, "
+              f"{rec['images']} images")
+        want = rec["steps"] + rec["val_batches"]
+        check(rec["launches"] == {"raster_uv": want, "raster_rgb": 0, "raster_rgb_binned": 0}
+              and rec["uv_sizes"] == [128 // n] * want,
+              f"{label} rank {r}: launches {rec['launches']} at B {rec['uv_sizes']}, "
+              f"expected {want} uv at B = {128 // n}")
+        hold = rec["uv_hold"]
+        print(f"raster_uv {label} rank {r}'s first train batch (B={hold['B']}): "
+              f"bit-equal={hold['equal']} max_abs_err={hold['max_abs_err']}", flush=True)
+        check(hold["equal"] and hold["B"] == 128 // n,
+              f"raster_uv differs from its plain twin on {label} rank {r}'s rows")
+        check(all(math.isfinite(v) for v in rec["final_loss"]),
+              f"{label} rank {r}: losses {rec['final_loss']}")
+        if rec["draws"] != ranks[0]["draws"]:
+            print(f"{label}: rank {r}'s draws differ from rank 0's:", flush=True)
+            for i, (a, b) in enumerate(zip(rec["draws"], ranks[0]["draws"])):
+                print(f"  draw {i}: rank {r} {a}, rank 0 {b}{'' if a == b else '  <-'}",
+                      flush=True)
+        check(rec["final"] == ranks[0]["final"] and rec["saved"] == ranks[0]["saved"]
+              and rec["final_loss"] == ranks[0]["final_loss"]
+              and rec["draws"] == ranks[0]["draws"],
+              f"{label}: rank {r} differs from rank 0 after the epoch: {rec['final']} "
+              f"{ranks[0]['final']}")
+    got = dp_readings(ranks, one)
+    got["uv_err"] = max(rec["uv_hold"]["max_abs_err"] for rec in ranks)
+    if not one:
+        check(got["grad"] <= DP_GRAD_RTOL,
+              f"{label}: the first step's gradients over {n} ranks {got['grad']:.4e} of their "
+              f"norm from one process's on the same batch (bound {DP_GRAD_RTOL}; one "
+              f"process's twice {got['again']:.4e})")
+        return got
+    check(one[0]["backend"] == "nccl" and one[0]["world"] == 1,
+          f"{label}: the 1-process --multihost run joined {one[0]['backend']}")
+    check(got["same_start"], f"{label}: {n} ranks and 1 process started from other parameters")
+    check(all(got[k] <= b for k, b in DP_LOSS_RTOL.items()),
+          f"{label}: over {n} ranks against 1 process, the losses "
+          f"{ranks[0]['final_loss']} against {one[0]['final_loss']} ({got['first']:.3e} and "
+          f"{got['last']:.3e} apart; bounds {DP_LOSS_RTOL})")
+    return got
+
+
+def _rate(rec: dict) -> float:
+    return rec["images"] / rec["train_seconds"]
+
+
+def _dp_line(got: dict, got32: dict) -> str:
+    return (f"the steps' losses {', '.join(f'{v:.3e}' for v in got['steps'])} apart from 1 "
+            f"process's (bounds {DP_LOSS_RTOL}), the parameters {got['gap']:.4e} of the "
+            f"1-process run's movement; the first step's gradients from one process's on the "
+            f"same batch {got['grad']:.4e} of their norm in bf16, {got32['grad']:.4e} in float32 "
+            f"(bound {DP_GRAD_RTOL}; one process's twice {got['again']:.4e}, "
+            f"{got32['again']:.4e})")
+
+
+def data_parallel(card: str, kernels: dict) -> dict:
+    """Phase 14: the released Clas recipe at full width (ResNet34 in bf16,
+    224 x 224, global batch 128, CCV 4 x 288 x 50, the hand_obj refiner),
+    synth-only through ``train.main`` (CONFIG_LEN_TRAIN 512: 4 steps,
+    VAL_LEN 128, 1 epoch), run by 2 processes joined with ``--multihost``
+    on the one card (gloo), then by 1 process with ``--multihost`` (NCCL,
+    one rank), then ``--resume`` of the 2-rank run by 2 processes, then the
+    2-rank run in float32. Each process is a
+    ``--dp-worker`` of this script; B1's hold on each rank's rows goes into
+    ``kernels``. -> B1's launches by run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        cfg_path = _dp_config(tmp)
+        t0 = time.perf_counter()
+        two = _dp_launch(2, tmp, "two", cfg=cfg_path)
+        one = _dp_launch(1, tmp, "one", cfg=cfg_path)
+        resumed = _dp_launch(2, tmp, "resume", resume=two[0]["dump_path"])
+        two32 = _dp_launch(2, tmp, "two_f32", cfg=_dp_config(tmp, "float32"))
+        wall = time.perf_counter() - t0
+        got = _dp_check(two, one, "gloo", ["cuda:0", "cuda:0"], "phase 14")
+        got32 = _dp_check(two32, None, "gloo", ["cuda:0", "cuda:0"], "phase 14 float32")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels["raster_uv"]["max_abs_err"] = max(kernels["raster_uv"]["max_abs_err"],
+                                              got["uv_err"], got32["uv_err"])
+    for r, rec in enumerate(resumed):
+        check(rec["restored"] == dict(two[r]["saved"], epoch=1),
+              f"phase 14 resume rank {r}: restored {rec['restored']}, saved {two[r]['saved']}")
+    print(f"phase 14, data parallel ({card}): released Clas recipe synth-only, 4 steps of a "
+          f"global 128, 1 val batch; 4 runs in {wall:.2f} s. 2 ranks (gloo, one card): "
+          f"params, buffers, Adam, the weight map and every draw bit-equal across ranks; each "
+          f"rank {two[0]['launches']['raster_uv']} uv launches at B = 64, B1 bit-equal to its "
+          f"twin on each rank's first batch; {_rate(two[0]):.2f} train img/s (rank 0's epoch, "
+          f"{two[0]['seconds']:.2f} s in train.main); final_loss {two[0]['final_loss']}. "
+          f"1 process (NCCL): {_rate(one[0]):.2f} train img/s, final_loss "
+          f"{one[0]['final_loss']}; {_dp_line(got, got32)}. 2-rank --resume restored epoch 1 "
+          f"bit-equal on both ranks.",
+          flush=True)
+    return {"two_rank_0": two[0]["launches"], "two_rank_1": two[1]["launches"],
+            "one": one[0]["launches"]}
+
+
+def data_parallel_cards(card: str, n: int) -> None:
+    """``--dp-cards``: phase 14's recipe run by one rank a card over all
+    ``n`` cards (NCCL), then by 1 process, in turns (N, 1, N, 1), then by
+    N in float32; the same checks as phase 14 and each run's train img/s."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_cards_")
+    try:
+        cfg_path = _dp_config(tmp)
+        ranks32 = _dp_launch(n, tmp, "n_f32", cfg=_dp_config(tmp, "float32"))
+        got32 = _dp_check(ranks32, None, "nccl", [f"cuda:{r}" for r in range(n)],
+                          "--dp-cards float32")
+        for i in range(2):
+            ranks = _dp_launch(n, tmp, f"n{i}", cfg=cfg_path)
+            one = _dp_launch(1, tmp, f"one{i}", cfg=cfg_path)
+            got = _dp_check(ranks, one, "nccl", [f"cuda:{r}" for r in range(n)],
+                            f"--dp-cards {i}")
+            print(f"data parallel over {n} cards ({card}), turn {i}: released Clas "
+                  f"recipe synth-only, 4 steps of a global 128, 1 val batch; {n} ranks (NCCL, "
+                  f"one card each): state and draws bit-equal across ranks, "
+                  f"{ranks[0]['launches']['raster_uv']} uv launches a rank at B = {128 // n}, "
+                  f"B1 bit-equal to its twin on each rank's first batch; {_rate(ranks[0]):.2f} "
+                  f"train img/s (rank 0's epoch 0), final_loss {ranks[0]['final_loss']}; "
+                  f"1 process: {_rate(one[0]):.2f} train img/s, final_loss "
+                  f"{one[0]['final_loss']}; {_dp_line(got, got32)}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def trainers(card: str) -> None:
+    """Phase 15: ``artiboost_torch.scripts.train_refiner.main`` (100 steps,
+    --batch 256 --obj_points 2048) and ``train_iknet.main`` (200 steps) on
+    the card, each writing its npz into a temporary directory; the losses
+    finite and the mean of the last 10 steps below that of the first 10;
+    each npz loaded back in the port and equal to the trained net."""
+    import torch
+
+    from artiboost_torch.artiboost.refiner import RefineNet, build_refiner
+    from artiboost_torch.mano.model import get_mano_model
+    from artiboost_torch.postprocess.fitting import load_iknet_params
+    from artiboost_torch.postprocess.iknet import IKNet
+    from artiboost_torch.scripts import train_iknet, train_refiner
+    from artiboost_torch.utils.convert import load_flax_npz, refinenet_from_flax
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainers_")
+    try:
+        res = {
+            "refiner": train_refiner.main(["--steps", "100", "--batch", "256", "--obj_points",
+                                           "2048", "--out", os.path.join(tmp, "refinenet.npz"),
+                                           "--log_freq", "25"]),
+            "iknet": train_iknet.main(["--steps", "200", "--out", os.path.join(tmp, "iknet.npz"),
+                                       "--log_freq", "50"])}
+        for name, r in res.items():
+            losses = [m["loss"] for m in r["losses"]]
+            check(all(math.isfinite(v) for v in losses), f"phase 15 {name}: losses {losses}")
+            head, tail = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+            check(tail < head, f"phase 15 {name}: the last 10 steps' loss {tail} is not below "
+                               f"the first 10's {head}")
+            r["head"], r["tail"] = head, tail
+        net = RefineNet()
+        net.load_state_dict(refinenet_from_flax(load_flax_npz(res["refiner"]["out"])["params"]))
+        trained = res["refiner"]["net"].state_dict()
+        check(all(torch.equal(v, trained[k].cpu()) for k, v in net.state_dict().items()),
+              "phase 15: refinenet.npz does not hold the trained RefineNet")
+        build_refiner({"TYPE": "hand_obj", "PRETRAINED": res["refiner"]["out"]},
+                      get_mano_model(device="cuda"))
+        ik = IKNet()
+        ik.load_state_dict(load_iknet_params(res["iknet"]["out"]))
+        trained = res["iknet"]["net"].state_dict()
+        check(all(torch.equal(v, trained[k].cpu()) for k, v in ik.state_dict().items()
+                  if not k.endswith("num_batches_tracked")),
+              "phase 15: iknet.npz does not hold the trained IKNet")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r, k = res["refiner"], res["iknet"]
+    print(f"phase 15, trainers ({card}): train_refiner 100 steps at --batch 256 --obj_points "
+          f"2048: {r['ms_per_step']:.3f} ms a step, loss {r['head']:.6f} (first 10) -> "
+          f"{r['tail']:.6f} (last 10); held-out recovery: scrambled {r['scrambled_mm']:.3f} mm "
+          f"-> refined {r['refined_mm']:.3f} mm. train_iknet 200 steps at B 256: "
+          f"{k['ms_per_step']:.3f} ms a step, loss {k['head']:.6f} -> {k['tail']:.6f}; fitting "
+          f"residual with the trained warm start {k['fit_err_mm']:.3f} mm. Both npz load "
+          f"back equal.", flush=True)
+
+
 def main():
     try:
         import torch
@@ -1498,9 +2015,17 @@ def main():
     finally:
         shutil.rmtree(real_dir, ignore_errors=True)
 
+    # ---- 14. data parallel: 2 ranks on the card against 1 process ----
+    launches14 = data_parallel(card, kernels)
+
+    # ---- 15. the RefineNet and IKNet trainers ----
+    trainers(card)
+
     rows = []
+    per_rank14 = [launches14["two_rank_0"], launches14["two_rank_1"]]
     main_path = {"8": launches8, "9": launches9, "10": launches10, "11": launches11,
-                 "12": launches12}
+                 "12": launches12,
+                 "14": {k: sum(c[k] for c in per_rank14) for k in per_rank14[0]}}
     for name, src_line, phases in (("raster_uv", 222, main_path),
                                    ("raster_rgb", 201, dict(main_path, **{"13": launches13})),
                                    ("raster_rgb_binned", 272, {"6": launches6})):
@@ -1509,6 +2034,7 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": "artiboost_torch/csrc/raster.cu",
                      "replaces": f"artiboost_tpu/ops/rasterizer_pallas.py:{src_line}",
                      "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+                     "launches_phase14_by_rank": [c[name] for c in per_rank14],
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})
@@ -1518,5 +2044,33 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
+def dp_cards_main():
+    """``python3 chip_smoke.py --dp-cards``: data parallelism over every card
+    of the machine, one rank a card (``data_parallel_cards``)."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        fail("--dp-cards needs two CUDA cards or more")
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    from artiboost_torch.ops.rasterizer_cuda import raster_uv
+
+    raster_uv.build()  # once, before the ranks start
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = ", ".join(sorted(set(smi.stdout.strip().splitlines())))
+    data_parallel_cards(card, torch.cuda.device_count())
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
+        dp_worker(json.loads(sys.argv[2]))
+    elif sys.argv[1:] == ["--dp-cards"]:
+        dp_cards_main()
+    else:
+        main()

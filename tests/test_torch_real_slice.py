@@ -116,8 +116,8 @@ def gates(tmp_path_factory):
 
     real, orig = [], HODataset.device_half
 
-    def device_half(self, host):
-        batch = orig(self, host)
+    def device_half(self, host, **kw):
+        batch = orig(self, host, **kw)
         if self.data_split == "train":
             real.append({k: v.clone() for k, v in batch.items()})
         return batch

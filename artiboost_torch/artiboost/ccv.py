@@ -51,7 +51,11 @@ def sample_triplets_draws(space: CCVSpace, generator: torch.Generator, n_samples
 
     With replacement: Categorical(effective weights) (ovg_set.py:113).
     Without: Gumbel top-k over log-weights, the exact equivalent of
-    sequential sampling without replacement; ids come in draw order."""
+    sequential sampling without replacement; ids come in draw order.
+    On CUDA ``torch.multinomial`` is not the same bits run to run: from
+    equal weights and generator states, ranks on separate cards drew other
+    triplets (ROADMAP C.2); under a process group the loader's
+    ``DrawSource`` hands every rank rank 0's draw."""
     w = space.effective_weights().reshape(-1)
     logw = torch.log(torch.clamp_min(w, 1e-20))
     if replace:

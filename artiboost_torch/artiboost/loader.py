@@ -124,7 +124,13 @@ class DrawSource:
         self.generator, self.device = generator, device
 
     def triplets(self, space: CCVSpace, n: int, replace: bool) -> torch.Tensor:
-        return sample_triplets_draws(space, self.generator, n, replace=replace)
+        """The CCV draw; under a process group rank 0's, on every rank, as
+        JAX's one SPMD program makes one draw: each rank draws from the same
+        generator state (so the states stay equal), but the weighted draw is
+        not the same bits run to run on CUDA, and ranks on separate cards
+        drew other triplets (ROADMAP C.2)."""
+        flat = sample_triplets_draws(space, self.generator, n, replace=replace)
+        return mesh.broadcast_(flat) if mesh.world() > 1 else flat
 
     def poses(self, pose_generator, B: int) -> Dict:
         return pose_generator.draws(self.generator, B, self.device)
@@ -308,6 +314,12 @@ class ArtiBoostLoader:
                 and epoch_idx + 1 >= self.val_start_epoch
                 and epoch_idx % self.val_freq == self.val_freq - 1)
 
+    def len_val(self) -> int:
+        """The val sweep's batch count (JAX ``loader.py:336-339``)."""
+        if self.generated_val is None:
+            return 0
+        return max(int(self.generated_val.obj_id.shape[0]) // self.batch_size, 1)
+
     def iter_val(self) -> Iterator[Dict]:
         """Pure-synth val batches in draw order (each triplet once); across
         ranks this rank's rows of each."""
@@ -370,7 +382,11 @@ class ArtiBoostLoader:
         batch's: ``synth_part`` renders this rank's rows)."""
         if synth_idx is None:
             return None
-        return torch.as_tensor(synth_idx, dtype=torch.int64, device=self.device)
+        host = torch.as_tensor(synth_idx, dtype=torch.int64)
+        if self.device.type != "cuda":
+            return host
+        # from pinned memory without waiting: a pageable copy synchronizes
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def real_part(self, host_batch) -> Dict:
         """The device half of a plan's real batch: this rank's rows of the

@@ -25,7 +25,7 @@ from artiboost_torch.ops.rasterizer import (
     vertex_normals_indexed,
 )
 from artiboost_torch.ops.rasterizer_cuda import rasterize_batch_rgb, rasterize_batch_uv
-from artiboost_torch.utils.misc import resolve_device
+from artiboost_torch.utils.misc import device_constant, resolve_device
 
 
 class RenderAssets(NamedTuple):
@@ -491,7 +491,7 @@ def render_scene(verts: torch.Tensor, colors: torch.Tensor, faces: torch.Tensor,
         normals = vertex_normals_indexed(verts, faces, incidence)
     else:
         normals = vertex_normals(verts, faces)
-    light_pos = torch.tensor([[0.3, -0.3, -0.3]], device=verts.device)
+    light_pos = device_constant(((0.3, -0.3, -0.3),), verts.device)
     vs = project_verts(verts, intr)
     if texturing is not None:
         s = shade_intensity(verts, normals, ambient, light_pos, light_int)
@@ -526,8 +526,8 @@ def render_scene(verts: torch.Tensor, colors: torch.Tensor, faces: torch.Tensor,
     # renderer.py:111-136 crops a random window of the 1.5x bank image)
     _, Hb, Wb, _ = backgrounds.shape
     gy, gx = background_grid(Hb, Wb, height, width)
-    gy = torch.as_tensor(gy, device=verts.device)
-    gx = torch.as_tensor(gx, device=verts.device)
+    gy = device_constant(tuple(gy.tolist()), verts.device, torch.int64)
+    gx = device_constant(tuple(gx.tolist()), verts.device, torch.int64)
     cid = draws["bg_pos"]
     oy = gy[torch.div(cid, len(gx), rounding_mode="floor")]
     ox = gx[cid % len(gx)]

@@ -35,7 +35,7 @@ from artiboost_torch.artiboost.renderer import (
 )
 from artiboost_torch.datasets.hoquery import Queries, SynthQueries
 from artiboost_torch.mano.model import ManoModel
-from artiboost_torch.utils.misc import CONST, logger, resolve_device
+from artiboost_torch.utils.misc import CONST, device_constant, logger, resolve_device
 from artiboost_torch.utils.transform import batch_persp_proj2d, get_affine_trans_no_rot
 
 
@@ -181,7 +181,7 @@ class SynthBatch:
         # crop center moves with it about the optical center
         rot_mat = _rot_z(rot_rad)
         c, s = torch.cos(rot_rad), torch.sin(rot_rad)
-        oc = torch.tensor([cfg.cx, cfg.cy], device=idx.device)
+        oc = device_constant((cfg.cx, cfg.cy), idx.device)
         cen = bbox_center - oc
         cen_rot = torch.stack([c * cen[:, 0] - s * cen[:, 1],
                                s * cen[:, 0] + c * cen[:, 1]], -1) + oc
@@ -224,8 +224,8 @@ class SynthBatch:
         if rs > 1:
             # quad-rate raster: the foreground renders at (H/rs, W/rs) and is
             # nearest-upsampled before the full-res background composite
-            scale_mat = torch.tensor([[1.0 / rs, 0.0, 0.0], [0.0, 1.0 / rs, 0.0],
-                                      [0.0, 0.0, 1.0]], device=idx.device)
+            scale_mat = device_constant(((1.0 / rs, 0.0, 0.0), (0.0, 1.0 / rs, 0.0),
+                                         (0.0, 0.0, 1.0)), idx.device)
             render_intr, rH, rW = scale_mat @ new_intr, H // rs, W // rs
         else:
             render_intr, rH, rW = new_intr, H, W

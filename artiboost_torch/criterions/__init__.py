@@ -10,22 +10,16 @@ from artiboost_torch.criterions.honetloss import ManoLoss, ObjLoss
 from artiboost_torch.criterions.jointloss import HandJointsLoss, JointsLoss
 from artiboost_torch.criterions.ordinal import HandOrdLoss, SceneOrdLoss
 from artiboost_torch.criterions.symcornerloss import SymCornerLoss
-
-LOSSES = {cls.__name__: cls for cls in (JointsLoss, HandJointsLoss, HandOrdLoss, SceneOrdLoss,
-                                        ManoLoss, ObjLoss, SymCornerLoss, AlignLoss, ChamferLoss)}
+from artiboost_torch.utils.registry import LOSS, build_from_cfg
 
 
 def build_criterion(cfg: Dict) -> Criterion:
-    """{"CRITERION": [loss cfgs], "LAMBDAS": [...]} -> Criterion. A loss
-    type that is not ported raises with its name."""
-    losses = []
-    for c in cfg["CRITERION"]:
-        c = dict(c)
-        kind = c.pop("TYPE")
-        if kind not in LOSSES:
-            raise NotImplementedError(f"loss {kind!r} is not ported yet (ported: {sorted(LOSSES)})")
-        losses.append(LOSSES[kind](**c))
-    return Criterion(cfg["LAMBDAS"], losses)
+    """{"CRITERION": [loss cfgs], "LAMBDAS": [...]} -> Criterion, each loss
+    built through the LOSS registry (a TYPE it does not know raises
+    ``KeyError``, as JAX's ``criterion.py:68-71``)."""
+    return Criterion(cfg["LAMBDAS"], [build_from_cfg(c, LOSS) for c in cfg["CRITERION"]])
 
 
-__all__ = ["Criterion", "TensorLoss", "LOSSES", "build_criterion"]
+__all__ = ["Criterion", "TensorLoss", "build_criterion", "AlignLoss", "ChamferLoss",
+           "ManoLoss", "ObjLoss", "HandJointsLoss", "JointsLoss", "HandOrdLoss", "SceneOrdLoss",
+           "SymCornerLoss"]

@@ -10,6 +10,7 @@ import torch
 from artiboost_torch.criterions.criterion import TensorLoss
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.utils.batching import key_validity, masked_sample_mean
+from artiboost_torch.utils.registry import LOSS
 
 
 def orthogonal_procrustes(A: torch.Tensor, B: torch.Tensor):
@@ -32,6 +33,7 @@ def procrustes_align(xyz: torch.Tensor, pred_xyz: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bni,bji->bnj", pred_n, R) * s * scale + tsl
 
 
+@LOSS.register_module
 class AlignLoss(TensorLoss):
     def __init__(self, LAMBDA_PROCRUSTES_ALIGN: float = 1.0, **_):
         super().__init__()

@@ -12,8 +12,10 @@ from artiboost_torch.criterions.criterion import TensorLoss
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.ops.chamfer import chamfer_distance
 from artiboost_torch.utils.batching import key_validity
+from artiboost_torch.utils.registry import LOSS
 
 
+@LOSS.register_module
 class ChamferLoss(TensorLoss):
     def __init__(self, LAMBDA_CHAMFER: float = 0.0, **_):
         super().__init__()

@@ -11,6 +11,7 @@ from artiboost_torch.criterions.criterion import TensorLoss
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.parallel.mesh import shard_normaliser
 from artiboost_torch.utils.batching import key_validity, masked_sample_mean
+from artiboost_torch.utils.registry import LOSS
 
 
 def _masked_mse_3d(pred: torch.Tensor, targ: torch.Tensor, m: Optional[torch.Tensor]
@@ -20,6 +21,7 @@ def _masked_mse_3d(pred: torch.Tensor, targ: torch.Tensor, m: Optional[torch.Ten
     return masked_sample_mean(torch.mean((pred - targ) ** 2, dim=(1, 2)), m)
 
 
+@LOSS.register_module
 class ManoLoss(TensorLoss):
     def __init__(self, LAMBDA_JOINTS_3D: float = 0.0, LAMBDA_HAND_VERTS_3D: float = 0.0,
                  LAMBDA_SHAPE_REG: float = 0.0, LAMBDA_POSE_REG: float = 0.0, **_):
@@ -54,6 +56,7 @@ class ManoLoss(TensorLoss):
         return final_loss, losses
 
 
+@LOSS.register_module
 class ObjLoss(TensorLoss):
     """MSE of the object's camera-space vertices: the model's
     ``obj_verts_3d_abs`` when it predicts them, else the predicted box pose

@@ -10,6 +10,7 @@ import torch
 from artiboost_torch.criterions.criterion import TensorLoss
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.utils.batching import key_validity
+from artiboost_torch.utils.registry import LOSS
 
 
 def _masked_mse(pred: torch.Tensor, targ: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
@@ -30,6 +31,7 @@ def _abs_loss(preds: Dict, targs: Dict, pred_key: str, targ_key: str, vis_key: s
     return _masked_mse(preds[pred_key], targs[targ_key] + root, vis)
 
 
+@LOSS.register_module
 class JointsLoss(TensorLoss):
     def __init__(self, LAMBDA_JOINTS_3D: float = 0.0, LAMBDA_CORNERS_3D: float = 0.0, **_):
         super().__init__()
@@ -52,6 +54,7 @@ class JointsLoss(TensorLoss):
         return final_loss, losses
 
 
+@LOSS.register_module
 class HandJointsLoss(TensorLoss):
     def __init__(self, LAMBDA_JOINTS_3D: float = 1.0, **_):
         super().__init__()

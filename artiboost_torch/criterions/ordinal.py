@@ -7,7 +7,11 @@ ground truth.
 
 The random half of each call is split out into ``draws``: the view
 vectors (``sample_view_vectors``, :28) and the random 1/3 pair subsample
-(``subsample_pairs``, :51)."""
+(``subsample_pairs``, :51).
+
+The pair tables live on the device the draws come from
+(``device_constant``), and the draws index them there: moving the draws to
+the host would wait on the card every step."""
 from __future__ import annotations
 
 from itertools import combinations, product
@@ -19,7 +23,18 @@ import torch
 from artiboost_torch.criterions.criterion import TensorLoss
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.utils.batching import key_validity
-from artiboost_torch.utils.misc import CONST
+from artiboost_torch.utils.misc import CONST, device_constant
+from artiboost_torch.utils.registry import LOSS
+
+
+JOINT_PAIRS = tuple(combinations(range(CONST.NUM_JOINTS), 2))  # (210, 2)
+PART_PAIRS = tuple(combinations(range(CONST.NUM_JOINTS - 1), 2))  # (190, 2)
+HO_PAIRS = tuple(product(range(CONST.NUM_JOINTS), range(CONST.NUM_CORNERS)))  # (168, 2)
+
+
+def pair_table(pairs: tuple, device) -> torch.Tensor:
+    """(P, 2) int64 index pairs on ``device``."""
+    return device_constant(pairs, torch.device(device), torch.int64)
 
 
 def sample_view_vectors(generator: torch.Generator, n_virtual_views: int, device
@@ -29,7 +44,7 @@ def sample_view_vectors(generator: torch.Generator, n_virtual_views: int, device
     u = torch.rand(n_virtual_views, generator=generator, device=device)
     s = torch.sqrt(torch.clamp_min(1.0 - u * u, 0.0))
     nv = torch.stack([s * torch.cos(theta), s * torch.sin(theta), u], dim=1)
-    cam = torch.tensor([[0.0, 0.0, 1.0]], device=device)
+    cam = device_constant(((0.0, 0.0, 1.0),), torch.device(device))
     return torch.cat([cam, nv], dim=0)
 
 
@@ -55,6 +70,7 @@ def _mask_kp(kp: torch.Tensor, vis: torch.Tensor) -> torch.Tensor:
     return kp * vis[..., None]
 
 
+@LOSS.register_module
 class HandOrdLoss(TensorLoss):
     def __init__(self, LAMBDA_PART_LEVEL: float = 1.0, LAMBDA_JOINTS_LEVEL: float = 1.0,
                  N_VIRTUAL_VIEWS: int = 20, **_):
@@ -62,10 +78,8 @@ class HandOrdLoss(TensorLoss):
         self.lambda_part_lev = float(LAMBDA_PART_LEVEL)
         self.lambda_joint_lev = float(LAMBDA_JOINTS_LEVEL)
         self.n_virtual_views = int(N_VIRTUAL_VIEWS)
-        njoints = CONST.NUM_JOINTS
-        self.joint_pairs_idx = torch.tensor(list(combinations(range(njoints), 2)))      # (210, 2)
-        self.parts_pairs_idx = torch.tensor(list(combinations(range(njoints - 1), 2)))  # (190, 2)
-        self.parents = torch.tensor(CONST.JOINTS_IDX_PARENTS)
+        self.joint_pairs_idx = torch.tensor(JOINT_PAIRS)
+        self.parts_pairs_idx = torch.tensor(PART_PAIRS)
 
     def draws(self, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
         return {"view": sample_view_vectors(generator, self.n_virtual_views, device),
@@ -77,7 +91,8 @@ class HandOrdLoss(TensorLoss):
         return torch.cat([kp[:, idx[:, 0]], kp[:, idx[:, 1]]], dim=2)
 
     def _parts(self, joints: torch.Tensor) -> torch.Tensor:
-        return (joints - joints[:, self.parents.to(joints.device)])[:, 1:]  # (B, 20, 3)
+        parents = device_constant(tuple(CONST.JOINTS_IDX_PARENTS), joints.device, torch.int64)
+        return (joints - joints[:, parents])[:, 1:]  # (B, 20, 3)
 
     def __call__(self, preds: Dict, targs: Dict, draws: Dict) -> Tuple[torch.Tensor, Dict]:
         vis = targs[Queries.JOINTS_VIS]
@@ -88,13 +103,14 @@ class HandOrdLoss(TensorLoss):
         targ_j = _mask_kp(targs[Queries.JOINTS_3D] + targs[Queries.ROOT_JOINT][:, None], vis)
         view = draws["view"]
 
-        jidx = self.joint_pairs_idx[draws["sel_j"].cpu()]
+        sel_j, sel_p = draws["sel_j"], draws["sel_p"]
+        jidx = pair_table(JOINT_PAIRS, sel_j.device)[sel_j]
         targ_sign = torch.sign(jointlevel_ordinal_relation(self._pairs(targ_j, jidx), view))
         pred_ord = jointlevel_ordinal_relation(self._pairs(pred_j, jidx), view)
         joint_ord_loss = torch.mean(torch.log1p(torch.relu(-targ_sign * pred_ord)))
 
         # part level (no log in the reference for parts)
-        pidx = self.parts_pairs_idx[draws["sel_p"].cpu()]
+        pidx = pair_table(PART_PAIRS, sel_p.device)[sel_p]
         targ_psign = torch.sign(partlevel_ordinal_relation(
             self._pairs(self._parts(targ_j), pidx), view))
         pred_pord = partlevel_ordinal_relation(self._pairs(self._parts(pred_j), pidx), view)
@@ -105,13 +121,13 @@ class HandOrdLoss(TensorLoss):
                             self.output_key: final_loss}
 
 
+@LOSS.register_module
 class SceneOrdLoss(TensorLoss):
     def __init__(self, LAMBDA_SCENE_LEVEL: float = 1.0, N_VIRTUAL_VIEWS: int = 40, **_):
         super().__init__()
         self.lambda_scene_lev = float(LAMBDA_SCENE_LEVEL)
         self.n_virtual_views = int(N_VIRTUAL_VIEWS)
-        self.ho_pairs_idx = torch.tensor(
-            list(product(range(CONST.NUM_JOINTS), range(CONST.NUM_CORNERS))))  # (168, 2)
+        self.ho_pairs_idx = torch.tensor(HO_PAIRS)
 
     def draws(self, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
         return {"view": sample_view_vectors(generator, self.n_virtual_views, device),
@@ -131,7 +147,8 @@ class SceneOrdLoss(TensorLoss):
         pred_c = _mask_kp(preds["corners_3d_abs"], c_vis)
         targ_c = _mask_kp(targs[Queries.CORNERS_3D] + root, c_vis)
 
-        p = self.ho_pairs_idx[draws["sel"].cpu()].to(pred_j.device)
+        sel = draws["sel"]
+        p = pair_table(HO_PAIRS, sel.device)[sel].to(pred_j.device)
         pred_pairs = torch.cat([pred_j[:, p[:, 0]], pred_c[:, p[:, 1]]], dim=2)
         targ_pairs = torch.cat([targ_j[:, p[:, 0]], targ_c[:, p[:, 1]]], dim=2)
         targ_sign = torch.sign(jointlevel_ordinal_relation(targ_pairs, draws["view"]))

@@ -15,8 +15,10 @@ from artiboost_torch.criterions.criterion import TensorLoss
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.utils.batching import key_validity, masked_sample_mean
 from artiboost_torch.utils.bop_sym import SymTable, sym_canonical
+from artiboost_torch.utils.registry import LOSS
 
 
+@LOSS.register_module
 class SymCornerLoss(TensorLoss):
     def __init__(self, LAMBDA_SYM_CORNERS_3D: float = 0.0, USE_HO3D_YCB: bool = False,
                  MODEL_INFO_PATH=None, MAX_SYM_DISC_STEP: float = 0.01, **_):

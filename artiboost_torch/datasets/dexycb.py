@@ -28,6 +28,7 @@ from artiboost_torch.datasets.hodata import HODataset, decode_rgb
 from artiboost_torch.mano.model import get_mano_model
 from artiboost_torch.mano.numpy_fk import NumpyMano
 from artiboost_torch.utils.misc import CONST, logger
+from artiboost_torch.utils.registry import DATASET
 
 # (subject indices, serial indices, sequence predicate) per (setup, split); None keeps all
 _SPLITS = {
@@ -52,6 +53,7 @@ def _box_corners(verts: np.ndarray) -> np.ndarray:
                      for z in (lo[2], hi[2])], np.float32) - (lo + hi) / 2
 
 
+@DATASET.register_module
 class DexYCB(HODataset):
     def __init__(self, DATA_PRESET: Dict, device=None, **cfg):
         super().__init__(DATA_PRESET, device=device, **cfg)

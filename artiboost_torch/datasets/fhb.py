@@ -14,6 +14,7 @@ import numpy as np
 
 from artiboost_torch.datasets.hodata import HODataset, decode_rgb
 from artiboost_torch.utils.misc import logger
+from artiboost_torch.utils.registry import DATASET
 
 # FPHA skeleton order -> the 21-keypoint convention (reference fhb reorder)
 _REORDER_IDX = [0, 1, 6, 7, 8, 2, 9, 10, 11, 3, 12, 13, 14, 4, 15, 16, 17, 5, 18, 19, 20]
@@ -65,6 +66,7 @@ def resize_linear(img: np.ndarray, size) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
+@DATASET.register_module
 class FPHB(HODataset):
     def __init__(self, DATA_PRESET: Dict, device=None, **cfg):
         super().__init__(DATA_PRESET, device=device, **cfg)

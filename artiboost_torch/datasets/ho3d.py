@@ -31,6 +31,7 @@ from artiboost_torch.datasets.hodata import HODataset, decode_rgb
 from artiboost_torch.mano.model import JOINT_REORDER, get_mano_model
 from artiboost_torch.mano.numpy_fk import NumpyMano, aa_to_rotmat_np, rotmat_to_aa_np
 from artiboost_torch.utils.misc import CONST, logger
+from artiboost_torch.utils.registry import DATASET
 
 _CAM_EXTR = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
 # the validation sequences of the directory sweep when train.txt is absent
@@ -38,6 +39,7 @@ _PAPER_VAL_SEQS = ("SM1", "MC2")
 _REORDER = np.asarray(JOINT_REORDER, np.int64)
 
 
+@DATASET.register_module
 class HO3D(HODataset):
     version = "v2"
 
@@ -260,5 +262,6 @@ class HO3D(HODataset):
         return "right"
 
 
+@DATASET.register_module
 class HO3DV3(HO3D):
     version = "v3"

@@ -1,5 +1,6 @@
 """Writers of the official on-disk layouts with seeded content: HO3D's
-split folders and frame lists, the YCB meshes with their MTL and texture,
+split folders and frame lists, DexYCB's subject/scene/camera folders with
+their calibration and object meshes, the YCB meshes with their MTL and texture,
 the pickled grasps, the background pool, the HTML textured hands and a
 torchvision-named ImageNet ResNet. The CPU tests write them small and feed
 them to both packages; ``chip_smoke.py`` writes them at the sizes of the
@@ -97,6 +98,78 @@ def write_ho3d(data_root: str, split: str, seqs: Dict[str, int], objects: Sequen
     with open(os.path.join(root, f"{sub}.txt"), "a") as fh:
         fh.write("".join(line + "\n" for line in lines))
     return len(images)
+
+
+DEXYCB_CAMS = ("836212060125", "839512060362")
+DEXYCB_SUBJECTS = ("20200709-subject-01", "20200813-subject-02", "20200820-subject-03",
+                   "20200903-subject-04", "20200908-subject-05", "20200918-subject-06",
+                   "20200928-subject-07", "20201002-subject-08", "20201015-subject-09",
+                   "20201022-subject-10")
+
+
+def write_dexycb(data_root: str, n_subjects: int, n_scenes: int, n_frames: int,
+                 rng: np.random.RandomState, test_frames: Optional[int] = None,
+                 ycb_id: int = 5, ycb_name: str = "006_mustard_bottle",
+                 cams: Sequence[str] = DEXYCB_CAMS) -> None:
+    """``{data_root}/DexYCB/<subject>/<scene>/{meta.yml, <camera>/labels_*.npz,
+    color_*.jpg}`` for the first ``n_subjects`` subjects, ``n_scenes``
+    scenes each, ``n_frames`` frames a camera at 640 x 480 (``test_frames``
+    in the scenes of the s0 test split: subjects 2-9, scenes 4 and 9): the right hand's 21 joints
+    about the object (every other scene with MANO pose, translation and
+    the subject's shape calibration), the object ``ycb_id`` 0.5 m ahead; the
+    cameras' colour intrinsics; the object's ``textured_simple.obj`` (an
+    ellipsoid of 3-4 cm), which the contact filter reads."""
+    import yaml
+
+    root = os.path.join(data_root, "DexYCB")
+    calib = os.path.join(root, "calibration")
+    os.makedirs(os.path.join(calib, "intrinsics"), exist_ok=True)
+    for cam in cams:
+        with open(os.path.join(calib, "intrinsics", f"{cam}_640x480.yml"), "w") as fh:
+            yaml.safe_dump({"color": {"fx": 615.0, "fy": 615.0, "ppx": 320.0, "ppy": 240.0}}, fh)
+    os.makedirs(os.path.join(calib, "mano_subject-01"), exist_ok=True)
+    with open(os.path.join(calib, "mano_subject-01", "mano.yml"), "w") as fh:
+        yaml.safe_dump({"betas": [0.1] * 10}, fh)
+    images = []
+    for si, subj in enumerate(DEXYCB_SUBJECTS[:n_subjects]):
+        for seq in range(n_scenes):
+            scene_dir = os.path.join(root, subj, f"2020{si:02d}_{seq:06d}")
+            with_mano = seq % 2 == 0
+            meta = {"mano_sides": ["right"], "serials": list(cams), "ycb_grasp_ind": 0,
+                    "ycb_ids": [ycb_id]}
+            if with_mano:
+                meta["mano_calib"] = ["subject-01"]
+            os.makedirs(scene_dir, exist_ok=True)
+            with open(os.path.join(scene_dir, "meta.yml"), "w") as fh:
+                yaml.safe_dump(meta, fh)
+            for cam in cams:
+                cam_dir = os.path.join(scene_dir, cam)
+                os.makedirs(cam_dir, exist_ok=True)
+                in_test = si >= 2 and seq % 5 == 4
+                for f in range(test_frames if in_test and test_frames else n_frames):
+                    pose_y = np.zeros((1, 3, 4), np.float32)
+                    pose_y[0, :3, :3] = np.eye(3)
+                    pose_y[0, :3, 3] = [0, 0, 0.5]
+                    extra = {}
+                    if with_mano:
+                        pose_m = np.zeros((1, 51), np.float32)
+                        pose_m[0, :48] = rng.randn(48) * 0.1
+                        pose_m[0, 48:] = [0, 0, 0.5]
+                        extra["pose_m"] = pose_m
+                    np.savez(os.path.join(cam_dir, f"labels_{f:06d}.npz"),
+                             joint_3d=(rng.randn(21, 3) * 0.05 + [0, 0, 0.5]).astype(np.float32),
+                             pose_y=pose_y, **extra)
+                    images.append((os.path.join(cam_dir, f"color_{f:06d}.jpg"),
+                                   rng.randint(0, 2**31 - 1)))
+
+    def save(item):
+        path, seed = item
+        _save_image(path, textured_image(np.random.RandomState(seed), 480, 640))
+
+    with ThreadPoolExecutor(max_workers=8) as pool:  # the encoders release the GIL
+        list(pool.map(save, images))
+    verts, _, faces = sphere_mesh(6, 8, rng.uniform(0.03, 0.04, 3))
+    write_obj(os.path.join(root, "models", ycb_name, "textured_simple.obj"), verts, faces=faces)
 
 
 def sphere_mesh(n_lat: int, n_lon: int, radii: Iterable[float]):

@@ -35,11 +35,12 @@ from artiboost_torch.artiboost.renderer import (
 )
 from artiboost_torch.artiboost.scrambler import Scrambler
 from artiboost_torch.artiboost.view_engine import ViewEngineConfig
-from artiboost_torch.datasets.dexycb import DexYCB
-from artiboost_torch.datasets.fhb import FPHB
-from artiboost_torch.datasets.ho3d import HO3D, HO3DV3
+from artiboost_torch.datasets.dexycb import DexYCB  # noqa: F401  (the real-data types register)
+from artiboost_torch.datasets.fhb import FPHB  # noqa: F401
+from artiboost_torch.datasets.ho3d import HO3D, HO3DV3  # noqa: F401
 from artiboost_torch.datasets.hodata import HODataset
 from artiboost_torch.mano.model import get_mano_model
+from artiboost_torch.utils.registry import DATASET, build_from_cfg
 
 RENDER_CHUNK = 16  # images per render call (synthetic.py:74-81)
 N_GRASP = 16
@@ -58,6 +59,7 @@ def synthetic_ho_draws(generator: torch.Generator, n: int, n_obj: int, n_persp: 
                        for s in range(0, n, RENDER_CHUNK)]}
 
 
+@DATASET.register_module
 class SyntheticHO(HODataset):
     """A pre-rendered set of hand-object scenes with full annotations."""
 
@@ -163,10 +165,6 @@ class SyntheticHO(HODataset):
         return self._hand_shape[idx]
 
 
-DATASETS = {"SyntheticHO": SyntheticHO, "HO3D": HO3D, "HO3DV3": HO3DV3, "DexYCB": DexYCB,
-            "FPHB": FPHB}
-
-
 REAL_DATA_TYPES = ("HO3D", "HO3DV3", "DexYCB", "FPHB")
 
 
@@ -193,14 +191,10 @@ def build_dataset(cfg: Dict, data_preset: Dict, device=None) -> HODataset:
     """A ``DATASET.TRAIN`` / ``TEST`` node -> dataset. A real-data type
     whose data is absent raises ``FileNotFoundError`` as the JAX package's
     does (the entry point then trains synth-only or skips the test passes);
-    a type that neither package knows raises ``NotImplementedError`` with
-    its name."""
-    cfg = dict(cfg)
-    kind = cfg.pop("TYPE")
+    any other type builds through the DATASET registry, which raises
+    ``KeyError`` for a type it does not know."""
+    kind = cfg["TYPE"]
     missing = missing_real_data(kind, cfg) if kind in REAL_DATA_TYPES else None
     if missing:
         raise FileNotFoundError(missing)
-    if kind not in DATASETS:
-        raise NotImplementedError(f"dataset {kind!r} is not ported yet "
-                                  f"(ported: {sorted(DATASETS)})")
-    return DATASETS[kind](DATA_PRESET=data_preset, device=device, **cfg)
+    return build_from_cfg(cfg, DATASET, {"DATA_PRESET": data_preset, "device": device})

@@ -8,6 +8,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from artiboost_torch.mano.model import JOINT_REORDER, NUM_JOINTS, TIP_VERT_IDS, ManoModel
+from artiboost_torch.utils.misc import device_constant
 from artiboost_torch.utils.transform import aa_to_rotmat
 
 _LEV1 = [1, 4, 7, 10, 13]
@@ -73,20 +74,25 @@ def _mano_forward_impl(model: ManoModel, rots: torch.Tensor, full_pose: Optional
 
     root_tf = _with_zeros_row(torch.cat([rots[:, 0], j_rest[:, 0, :, None]], dim=-1))
 
+    def ids(values):  # index tensors made on the device once
+        return device_constant(tuple(values), rots.device, torch.int64)
+
+    lev = [ids([0] * 5), ids(_LEV1), ids(_LEV2), ids(_LEV3)]
+
     def level(parent_tf, jids, parent_jids):
         rel_t = j_rest[:, jids] - j_rest[:, parent_jids]
         rel = _with_zeros_row(torch.cat([rots[:, jids], rel_t[..., None]], dim=-1))
         return parent_tf @ rel
 
-    lev1 = level(root_tf[:, None].expand(B, 5, 4, 4), _LEV1, [0] * 5)
-    lev2 = level(lev1, _LEV2, _LEV1)
-    lev3 = level(lev2, _LEV3, _LEV2)
+    lev1 = level(root_tf[:, None].expand(B, 5, 4, 4), lev[1], lev[0])
+    lev2 = level(lev1, lev[2], lev[1])
+    lev3 = level(lev2, lev[3], lev[2])
 
     transforms_abs = torch.zeros((B, NUM_JOINTS, 4, 4), dtype=rots.dtype, device=rots.device)
     transforms_abs[:, 0] = root_tf
-    transforms_abs[:, _LEV1] = lev1
-    transforms_abs[:, _LEV2] = lev2
-    transforms_abs[:, _LEV3] = lev3
+    transforms_abs[:, lev[1]] = lev1
+    transforms_abs[:, lev[2]] = lev2
+    transforms_abs[:, lev[3]] = lev3
 
     # transforms act about each rest joint: subtract A_j @ [j_rest, 0]
     j_h = torch.cat([j_rest, torch.zeros_like(j_rest[..., :1])], dim=-1)
@@ -98,8 +104,8 @@ def _mano_forward_impl(model: ManoModel, rots: torch.Tensor, full_pose: Optional
     verts = torch.einsum("bvik,bvk->bvi", tf_v, v_h)[..., :3]
 
     joints16 = transforms_abs[:, :, :3, 3]
-    tips = verts[:, list(TIP_VERT_IDS)]
-    joints21 = torch.cat([joints16, tips], dim=1)[:, list(JOINT_REORDER)]
+    tips = verts[:, ids(TIP_VERT_IDS)]
+    joints21 = torch.cat([joints16, tips], dim=1)[:, ids(JOINT_REORDER)]
     if center_idx is not None:
         center = joints21[:, center_idx:center_idx + 1]
         verts = verts - center

@@ -18,10 +18,12 @@ from artiboost_torch.metrics.val_metric import OnesPad, mspd_values, mssd_values
 from artiboost_torch.parallel.mesh import all_gather_rows
 from artiboost_torch.utils.bop_sym import SymTable, load_model_info
 from artiboost_torch.utils.misc import resolve_device
+from artiboost_torch.utils.registry import METRIC
 
 N_THRESHOLDS = 10
 
 
+@METRIC.register_module
 class AR:
     def __init__(self, USE_MSSD: bool = True, MSSD_USE_CORNERS: bool = False,
                  USE_HO3D_YCB: bool = False, USE_MSPD: bool = True, USE_VSD: bool = False,

@@ -1,7 +1,7 @@
 """Evaluator: fan-out feed to a metric list (counterpart of
 ``artiboost_tpu/metrics/evaluator.py``). Every metric the released and
-smoke configs list is ported; a type the port does not know is skipped
-with a warning."""
+smoke configs list is ported; every metric builds through the METRIC
+registry, and a type it does not know raises ``KeyError`` as JAX's does."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
@@ -20,10 +20,13 @@ from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
 from artiboost_torch.metrics.vismetric import Vis2DMetric, VisHand2DMetric, VisMetric
 from artiboost_torch.parallel import mesh
 from artiboost_torch.utils.misc import logger, resolve_device
+from artiboost_torch.utils.registry import METRIC, build_from_cfg
 
-METRICS = {m.__name__: m for m in (
-    LossesMetric, Mean3DEPE, Mean2DEPE, ValMetricMean3DEPE2, Hand3DPCKMetric, Obj3DPCKMetric,
-    Hand2DPCKMetric, Obj2DPCKMetric, Vis2DMetric, VisHand2DMetric, AR, ValMetricAR2)}
+# every metric, by the name the JAX package registers it under
+METRICS = METRIC.module_dict
+__all__ = ["AR", "Evaluator", "Hand2DPCKMetric", "Hand3DPCKMetric", "LossesMetric", "METRICS",
+           "Mean2DEPE", "Mean3DEPE", "Obj2DPCKMetric", "Obj3DPCKMetric", "ValMetricAR2",
+           "ValMetricMean3DEPE2", "Vis2DMetric", "VisHand2DMetric", "build_evaluator"]
 
 
 class Evaluator:
@@ -103,17 +106,10 @@ class Evaluator:
 
 def build_evaluator(metric_cfg_list: List[Dict], data_preset: Optional[Dict] = None,
                     device=None) -> Evaluator:
-    """One metric per config entry, each given ``DATA_PRESET`` when there
-    is one (``evaluator.py:92-97``)."""
-    device = resolve_device(device)
-    metrics = []
-    for c in metric_cfg_list:
-        c = dict(c)
-        kind = c.pop("TYPE")
-        if kind not in METRICS:
-            logger.warning(f"metric {kind} is not ported yet; skipped")
-            continue
-        if data_preset is not None:
-            c.setdefault("DATA_PRESET", data_preset)
-        metrics.append(METRICS[kind](device=device, **c))
-    return Evaluator(metrics)
+    """One metric per config entry through the METRIC registry, each given
+    ``DATA_PRESET`` when there is one (``evaluator.py:92-97``) and the
+    ``device``; an unknown TYPE raises ``KeyError``."""
+    defaults = {"device": resolve_device(device)}
+    if data_preset is not None:
+        defaults["DATA_PRESET"] = data_preset
+    return Evaluator([build_from_cfg(c, METRIC, defaults) for c in metric_cfg_list])

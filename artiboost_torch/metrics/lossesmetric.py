@@ -10,8 +10,10 @@ import torch
 
 from artiboost_torch.metrics.metric import AverageMeter
 from artiboost_torch.parallel.mesh import all_reduce_sum_
+from artiboost_torch.utils.registry import METRIC
 
 
+@METRIC.register_module
 class LossesMetric:
     def __init__(self, VIS_LOSS_KEYS: List[str] = (), **_) -> None:
         self.vis_loss_keys = list(VIS_LOSS_KEYS or [])

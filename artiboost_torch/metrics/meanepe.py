@@ -15,8 +15,10 @@ from artiboost_torch.metrics.metric import AverageMeter
 from artiboost_torch.parallel.mesh import all_reduce_sum_
 from artiboost_torch.utils.batching import key_validity
 from artiboost_torch.utils.misc import resolve_device
+from artiboost_torch.utils.registry import METRIC
 
 
+@METRIC.register_module
 class Mean3DEPE:
     def __init__(self, VAL_KEYS: List[str], MILLIMETERS: bool = False,
                  FILTER_UNSEEN_OBJ_IDXS: List[int] = (), device=None, **_) -> None:
@@ -72,6 +74,7 @@ class Mean3DEPE:
         return " | ".join(f"{k}_mepe: {m.avg:6.4f}" for k, m in self.avg_meters().items())
 
 
+@METRIC.register_module
 class Mean2DEPE(Mean3DEPE):
     """Mean3DEPE over 2D keys, always in the keys' own unit (pixels)."""
 

@@ -15,6 +15,7 @@ import torch
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.parallel.mesh import all_gather_rows
 from artiboost_torch.utils.misc import CONST
+from artiboost_torch.utils.registry import METRIC
 
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
 
@@ -92,6 +93,7 @@ class PCKMetric:
         return f"auc: {m['auc_all']:6.4f} | epe: {m['epe_mean_all']:6.4f}"
 
 
+@METRIC.register_module
 class Hand3DPCKMetric(PCKMetric):
     num_kp = CONST.NUM_JOINTS
 
@@ -100,6 +102,7 @@ class Hand3DPCKMetric(PCKMetric):
         return preds["joints_3d_abs"], targ, targs[Queries.JOINTS_VIS]
 
 
+@METRIC.register_module
 class Obj3DPCKMetric(PCKMetric):
     num_kp = CONST.NUM_CORNERS
 
@@ -108,6 +111,7 @@ class Obj3DPCKMetric(PCKMetric):
         return preds["corners_3d_abs"], targ, targs[Queries.CORNERS_VIS]
 
 
+@METRIC.register_module
 class Hand2DPCKMetric(PCKMetric):
     num_kp = CONST.NUM_JOINTS
 
@@ -115,6 +119,7 @@ class Hand2DPCKMetric(PCKMetric):
         return preds["joints_2d"], targs[Queries.JOINTS_2D], targs[Queries.JOINTS_VIS]
 
 
+@METRIC.register_module
 class Obj2DPCKMetric(PCKMetric):
     num_kp = CONST.NUM_CORNERS
 

@@ -16,6 +16,7 @@ from artiboost_torch.datasets.hoquery import Queries, SynthQueries
 from artiboost_torch.parallel.mesh import all_reduce_sum_
 from artiboost_torch.utils.bop_sym import SymTable, sym_canonical
 from artiboost_torch.utils.misc import resolve_device
+from artiboost_torch.utils.registry import METRIC
 
 
 class CCVMeter:
@@ -58,6 +59,7 @@ def epe_values(pred: torch.Tensor, targ_rel: torch.Tensor, root: torch.Tensor) -
     return torch.linalg.norm(pred - (targ_rel + root[:, None]), dim=2).mean(dim=1)
 
 
+@METRIC.register_module
 class ValMetricMean3DEPE2:
     """Per-triplet mean EPE over VAL_KEYS (e.g. corners_3d_abs,
     joints_3d_abs against the root-relative targets + root)."""
@@ -242,6 +244,7 @@ class OnesPad:
         return self.mask
 
 
+@METRIC.register_module
 class ValMetricAR2:
     """Per-triplet MSSD in millimetres (reference val_metric.py:146-324),
     on the object's vertices or, with MSSD_USE_CORNERS, its box corners."""

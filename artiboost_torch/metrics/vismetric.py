@@ -17,6 +17,7 @@ from PIL import Image, ImageDraw
 
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.utils.misc import CONST
+from artiboost_torch.utils.registry import METRIC
 
 _FINGER_COLORS = ["#ff0000", "#00ff00", "#0000ff", "#ffff00", "#ff00ff"]
 
@@ -64,6 +65,7 @@ class VisMetric:
         self.images: Optional[Image.Image] = None
 
 
+@METRIC.register_module
 class Vis2DMetric(VisMetric):
     def __init__(self, **cfg) -> None:
         super().__init__(**cfg)
@@ -116,6 +118,7 @@ class Vis2DMetric(VisMetric):
         return "vis2d"
 
 
+@METRIC.register_module
 class VisHand2DMetric(Vis2DMetric):
     """Hand-only overlay variant (reference ``anakin/metrics/vismetric.py:360``),
     for hand-only models with no corner predictions."""

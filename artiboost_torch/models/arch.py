@@ -11,13 +11,9 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch import nn
 
-from artiboost_torch.models.honet import build_honet
-from artiboost_torch.models.hpregnet import build_hopregnet
-from artiboost_torch.models.hybrid_baseline import build_hybrid_baseline
-from artiboost_torch.models.simple_baseline import build_simple_baseline
-
-MODELS = {"HybridBaseline": build_hybrid_baseline, "HOPRegNet": build_hopregnet,
-          "HoNet": build_honet, "SimpleBaseline": build_simple_baseline}
+# the models register themselves under the JAX package's names
+from artiboost_torch.models import honet, hpregnet, hybrid_baseline, simple_baseline  # noqa: F401
+from artiboost_torch.utils.registry import build_model
 
 
 class Arch(nn.Module):
@@ -47,15 +43,15 @@ class Arch(nn.Module):
 
 
 def build_arch(arch_cfg, data_preset: Dict[str, Any]) -> Arch:
-    """The YAML ``ARCH`` entry (dict or list of dicts) -> Arch. Each model
-    applies its own ``DTYPE`` (float32 when absent)."""
+    """The YAML ``ARCH`` entry (dict or list of dicts) -> Arch, each model
+    built through the MODEL registry with ``DATA_PRESET`` (``arch.py:55-66``;
+    an unknown TYPE raises ``KeyError``). Each model applies its own
+    ``DTYPE`` (float32 when absent)."""
     if isinstance(arch_cfg, dict):
         arch_cfg = [arch_cfg]
     names = [c["TYPE"] for c in arch_cfg]
     models, previous = [], []
     for c in arch_cfg:
-        if c["TYPE"] not in MODELS:
-            raise NotImplementedError(f"model {c['TYPE']!r} is not ported yet")
-        models.append(MODELS[c["TYPE"]](c, data_preset))
+        models.append(build_model(c, {"DATA_PRESET": data_preset}))
         previous.append(tuple(names.index(p) for p in (c.get("PREVIOUS") or [])))
     return Arch(models, names, previous)

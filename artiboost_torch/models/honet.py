@@ -17,8 +17,9 @@ from torch import nn
 
 from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.mano.model import get_mano_model
-from artiboost_torch.models.hpregnet import ManoAdaptor, ManoBranch, TransHead, build_mano_branch
+from artiboost_torch.models.hpregnet import ManoAdaptor, ManoBranch, TransHead, build_mano_head
 from artiboost_torch.models.resnet import build_backbone
+from artiboost_torch.utils.registry import MODEL
 from artiboost_torch.utils.transform import aa_to_rotmat, batch_persp_proj2d
 
 
@@ -105,9 +106,11 @@ class HoNet(nn.Module):
         }
 
 
-def build_honet(cfg: Dict, data_preset: Dict) -> HoNet:
+@MODEL.register_module(name="HoNet")
+def build_honet(**cfg) -> HoNet:
     """``honet.py:127-154``: the adaptor's pickle is
     ``MANO_FHB_ADAPTOR_DIR/fhb_skel_centeridx{CENTER_IDX}.pkl``."""
+    data_preset = cfg.get("DATA_PRESET", {})
     backbone = build_backbone(cfg)
     center_idx = data_preset.get("CENTER_IDX", 9)
     adaptor = None
@@ -116,7 +119,7 @@ def build_honet(cfg: Dict, data_preset: Dict) -> HoNet:
                                  f"fhb_skel_centeridx{center_idx}.pkl")
         adaptor = ManoAdaptor(get_mano_model(cfg["HEAD"].get("MANO_ASSETS_ROOT"), device="cpu"),
                               load_path=load_path)
-    return HoNet(backbone, build_mano_branch(cfg["HEAD"], data_preset, backbone.out_channels),
+    return HoNet(backbone, build_mano_head(cfg, backbone),
                  obj_trans_factor=cfg.get("OBJ_TRANS_FACTOR", 100.0),
                  obj_scale_factor=cfg.get("OBJ_SCALE_FACTOR", 0.0001),
                  center_idx=center_idx, adaptor=adaptor)

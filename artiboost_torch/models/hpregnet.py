@@ -24,6 +24,7 @@ from artiboost_torch.mano.layer import mano_forward, mano_forward_rotmat, pca_to
 from artiboost_torch.mano.model import JOINT_REORDER, TIP_VERT_IDS, ManoModel, get_mano_model
 from artiboost_torch.models.layers import Linear
 from artiboost_torch.models.resnet import build_backbone
+from artiboost_torch.utils.registry import HEAD, MODEL, build_head
 from artiboost_torch.utils.transform import (batch_persp_proj2d, rot6d_to_rotmat, rotmat_proj,
                                              rotmat_to_aa)
 
@@ -146,17 +147,33 @@ class HOPRegNet(nn.Module):
         }
 
 
-def build_mano_branch(head: Dict, data_preset: Dict, inp_dim: int) -> ManoBranch:
-    """The ``ManoBranch`` HEAD entry (``hpregnet.py:176-187``): float32,
-    ``flat_hand_mean`` False, CENTER_IDX from the head or DATA_PRESET."""
-    if head.get("TYPE", "ManoBranch") != "ManoBranch":
-        raise NotImplementedError(f"head {head['TYPE']!r} is not ported yet")
+@HEAD.register_module(name="ManoAdaptor")
+def build_mano_adaptor(**cfg) -> ManoAdaptor:
+    """The HEAD registry's ``ManoAdaptor`` (``hpregnet.py:161-166``)."""
+    return ManoAdaptor(get_mano_model(cfg.get("MANO_ASSETS_ROOT"), device="cpu"),
+                       load_path=cfg.get("LOAD_PATH", ""))
+
+
+@HEAD.register_module(name="ManoBranch")
+def build_mano_branch(**head) -> ManoBranch:
+    """The HEAD registry's ``ManoBranch`` (``hpregnet.py:169-179``): float32,
+    ``flat_hand_mean`` False, CENTER_IDX from the head or (as a default)
+    DATA_PRESET; ``INPUT_DIM`` is the backbone's width (a default the
+    models' builders give; flax infers it)."""
     return ManoBranch(get_mano_model(head.get("MANO_ASSETS_ROOT"), device="cpu"),
-                      inp_dim=inp_dim, ncomps=head.get("NCOMPS", 15),
+                      inp_dim=head.get("INPUT_DIM", 512), ncomps=head.get("NCOMPS", 15),
                       use_pca=head.get("USE_PCA", True), use_shape=head.get("USE_SHAPE", True),
-                      center_idx=head.get("CENTER_IDX", data_preset.get("CENTER_IDX", 9)))
+                      center_idx=head.get("CENTER_IDX", 9))
 
 
-def build_hopregnet(cfg: Dict, data_preset: Dict) -> HOPRegNet:
+def build_mano_head(cfg: Dict, backbone: nn.Module) -> nn.Module:
+    """An ARCH entry's HEAD through the HEAD registry, with DATA_PRESET and
+    the backbone's width as defaults."""
+    return build_head(cfg["HEAD"], {**cfg.get("DATA_PRESET", {}),
+                                    "INPUT_DIM": backbone.out_channels})
+
+
+@MODEL.register_module(name="HOPRegNet")
+def build_hopregnet(**cfg) -> HOPRegNet:
     backbone = build_backbone(cfg)
-    return HOPRegNet(backbone, build_mano_branch(cfg["HEAD"], data_preset, backbone.out_channels))
+    return HOPRegNet(backbone, build_mano_head(cfg, backbone))

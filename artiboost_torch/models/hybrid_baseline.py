@@ -19,7 +19,8 @@ from artiboost_torch.datasets.hoquery import Queries
 from artiboost_torch.models.integral_head import IntegralDeconvHead
 from artiboost_torch.models.mlp import MLP
 from artiboost_torch.models.resnet import build_backbone
-from artiboost_torch.utils.misc import CONST, resolve_dtype
+from artiboost_torch.utils.misc import CONST, device_constant
+from artiboost_torch.utils.registry import MODEL, build_head, build_model
 from artiboost_torch.utils.transform import batch_uvd2xyz, rot6d_to_rotmat
 
 
@@ -49,8 +50,8 @@ class HybridBaseline(nn.Module):
         root_joint = joints_3d_abs[:, self.center_idx]
         hom = torch.einsum("bij,bnj->bni", intr, corners_3d_abs)
         corners_2d = hom[..., :2] / torch.clamp_min(hom[..., 2:], 1e-8)
-        corners_2d = corners_2d / torch.tensor([width, height], dtype=corners_2d.dtype,
-                                               device=corners_2d.device)
+        corners_2d = corners_2d / device_constant((width, height), corners_2d.device,
+                                                  corners_2d.dtype)
         corners_2d_uvd = torch.cat([corners_2d, torch.zeros_like(corners_2d[..., :1])], -1)
         final_2d_uvd = torch.cat([pose["kp3d"][:, 0:21], corners_2d_uvd,
                                   pose["kp3d"][:, 21:22]], dim=1)
@@ -66,27 +67,17 @@ class HybridBaseline(nn.Module):
         }
 
 
-def build_integral_head(h: Dict, in_channels: int, dtype: torch.dtype) -> IntegralDeconvHead:
-    """An ``IntegralDeconvHead`` HEAD entry (``integral_head.py:104-116``)."""
-    return IntegralDeconvHead(
-        in_channels=h.get("INPUT_CHANNEL", in_channels),
-        nclasses=h.get("NCLASSES", 22), depth_res=h.get("DEPTH_RESOLUTION", 28),
-        norm_type=h.get("NORM_TYPE", "softmax"),
-        deconv_filters=tuple(h.get("NUM_DECONV_FILTERS", (256, 256))),
-        deconv_kernels=tuple(h.get("NUM_DECONV_KERNELS", (4, 4))),
-        deconv_with_bias=h.get("DECONV_WITH_BIAS", False),
-        final_conv_kernel=h.get("FINAL_CONV_KERNEL", 1), dtype=dtype)
-
-
-def build_hybrid_baseline(cfg: Dict, data_preset: Dict) -> HybridBaseline:
-    def dtype(sub: Dict) -> torch.dtype:
-        return resolve_dtype(sub.get("DTYPE", cfg.get("DTYPE")))
-
+@MODEL.register_module(name="HybridBaseline")
+def build_hybrid_baseline(**cfg) -> HybridBaseline:
+    """``hybrid_baseline.py:77-94``: the backbone, the HYBRID_HEAD and the
+    BOX_HEAD through their registries, in the arch's DTYPE unless their
+    own says otherwise."""
+    data_preset = cfg.get("DATA_PRESET", {})
+    sub = {"DTYPE": cfg["DTYPE"]} if cfg.get("DTYPE") else {}
     backbone = build_backbone(cfg)
-    head = build_integral_head(cfg["HYBRID_HEAD"], backbone.out_channels, dtype(cfg["HYBRID_HEAD"]))
-    b = cfg["BOX_HEAD"]
-    box = MLP(layers_n=tuple(b.get("LAYERS_N", (512, 256, 128))),
-              out_channel=b.get("OUT_CHANNEL", 6), dtype=dtype(b))
+    head = build_head({**sub, **cfg["HYBRID_HEAD"]},
+                      {**data_preset, "INPUT_CHANNEL": backbone.out_channels})
+    box = build_model({**sub, **cfg["BOX_HEAD"]}, data_preset)
     return HybridBaseline(backbone, head, box,
                           inp_res=tuple(data_preset.get("IMAGE_SIZE", (224, 224))),
                           center_idx=data_preset.get("CENTER_IDX", 9))

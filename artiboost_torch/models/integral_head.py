@@ -15,6 +15,8 @@ import torch
 from torch import nn
 
 from artiboost_torch.models.layers import BatchNorm2d, Conv2d, ConvTranspose2d
+from artiboost_torch.utils.misc import resolve_dtype
+from artiboost_torch.utils.registry import HEAD
 
 
 class IntegralDeconvHead(nn.Module):
@@ -55,3 +57,18 @@ class IntegralDeconvHead(nn.Module):
         u_ = torch.einsum("bcdhw,w->bc", e, wu) / z
         # max(softmax) = exp(0) / Z
         return {"kp3d": torch.stack([u_, v_, d_], dim=-1), "kp3d_confd": 1.0 / z}
+
+
+@HEAD.register_module(name="IntegralDeconvHead")
+def build_integral_deconv_head(**h) -> IntegralDeconvHead:
+    """The HEAD registry's ``IntegralDeconvHead`` (``integral_head.py:104-116``).
+    ``INPUT_CHANNEL`` is the backbone's width (the arch's builders give it
+    as a default; flax infers it)."""
+    return IntegralDeconvHead(
+        in_channels=h.get("INPUT_CHANNEL", 512),
+        nclasses=h.get("NCLASSES", 22), depth_res=h.get("DEPTH_RESOLUTION", 28),
+        norm_type=h.get("NORM_TYPE", "softmax"),
+        deconv_filters=tuple(h.get("NUM_DECONV_FILTERS", (256, 256))),
+        deconv_kernels=tuple(h.get("NUM_DECONV_KERNELS", (4, 4))),
+        deconv_with_bias=h.get("DECONV_WITH_BIAS", False),
+        final_conv_kernel=h.get("FINAL_CONV_KERNEL", 1), dtype=resolve_dtype(h.get("DTYPE")))

@@ -10,6 +10,8 @@ import torch
 from torch import nn
 
 from artiboost_torch.models.layers import Linear
+from artiboost_torch.utils.misc import resolve_dtype
+from artiboost_torch.utils.registry import MODEL
 
 
 class MLP(nn.Module):
@@ -26,3 +28,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers(x.to(self.dtype)).float()
+
+
+@MODEL.register_module(name="MLP_O")
+def build_mlp_o(**cfg) -> MLP:
+    """The MODEL registry's ``MLP_O`` (``mlp.py:26-32``)."""
+    return MLP(layers_n=tuple(cfg.get("LAYERS_N", (512, 256, 128))),
+               out_channel=cfg.get("OUT_CHANNEL", 6), dtype=resolve_dtype(cfg.get("DTYPE")))

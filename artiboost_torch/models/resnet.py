@@ -14,6 +14,8 @@ from torch import nn
 
 from artiboost_torch.models.layers import BatchNorm2d, Conv2d
 from artiboost_torch.utils.misc import resolve_dtype
+from artiboost_torch.utils.registry import BACKBONE
+from artiboost_torch.utils.registry import build_backbone as build_registered_backbone
 
 
 class BasicBlock(nn.Module):
@@ -102,8 +104,23 @@ def build_resnet(cfg: Dict, dtype: torch.dtype = torch.float32) -> ResNet:
     return ResNet(block, sizes, dtype)
 
 
+def _make_factory(name: str):
+    """The BACKBONE registry's entry ``name``: a factory of the ResNet in the
+    config's ``DTYPE`` (``resnet.py:88-95``)."""
+    def factory(**cfg) -> ResNet:
+        return build_resnet({"TYPE": name}, resolve_dtype(cfg.get("DTYPE")))
+
+    factory.__name__ = name
+    return BACKBONE.register_module(factory, name=name)
+
+
+for _name in RESNETS:
+    _make_factory(_name)
+
+
 def build_backbone(arch_cfg: Dict) -> ResNet:
-    """An ARCH entry's BACKBONE in ``ARCH.DTYPE`` (the backbone's own DTYPE
-    wins, as the JAX package's build functions merge them)."""
-    bb = arch_cfg["BACKBONE"]
-    return build_resnet(bb, resolve_dtype(bb.get("DTYPE", arch_cfg.get("DTYPE"))))
+    """An ARCH entry's BACKBONE through the BACKBONE registry, in
+    ``ARCH.DTYPE`` (the backbone's own DTYPE wins, as the JAX package's
+    build functions merge them)."""
+    sub = {"DTYPE": arch_cfg["DTYPE"]} if arch_cfg.get("DTYPE") else {}
+    return build_registered_backbone({**sub, **arch_cfg["BACKBONE"]})

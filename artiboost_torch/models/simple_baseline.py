@@ -10,10 +10,10 @@ import torch
 from torch import nn
 
 from artiboost_torch.datasets.hoquery import Queries
-from artiboost_torch.models.hybrid_baseline import build_integral_head
 from artiboost_torch.models.integral_head import IntegralDeconvHead
 from artiboost_torch.models.resnet import build_backbone
-from artiboost_torch.utils.misc import CONST, resolve_dtype
+from artiboost_torch.utils.misc import CONST
+from artiboost_torch.utils.registry import MODEL, build_head
 from artiboost_torch.utils.transform import batch_uvd2xyz
 
 
@@ -43,11 +43,13 @@ class SimpleBaseline(nn.Module):
         }
 
 
-def build_simple_baseline(cfg: Dict, data_preset: Dict) -> SimpleBaseline:
+@MODEL.register_module(name="SimpleBaseline")
+def build_simple_baseline(**cfg) -> SimpleBaseline:
+    data_preset = cfg.get("DATA_PRESET", {})
+    sub = {"DTYPE": cfg["DTYPE"]} if cfg.get("DTYPE") else {}
     backbone = build_backbone(cfg)
-    head = cfg["HEAD"]
-    return SimpleBaseline(
-        backbone, build_integral_head(head, backbone.out_channels,
-                                      resolve_dtype(head.get("DTYPE", cfg.get("DTYPE")))),
-        inp_res=tuple(data_preset.get("IMAGE_SIZE", (224, 224))),
-        center_idx=data_preset.get("CENTER_IDX", 9))
+    head = build_head({**sub, **cfg["HEAD"]},
+                      {**data_preset, "INPUT_CHANNEL": backbone.out_channels})
+    return SimpleBaseline(backbone, head,
+                          inp_res=tuple(data_preset.get("IMAGE_SIZE", (224, 224))),
+                          center_idx=data_preset.get("CENTER_IDX", 9))

@@ -66,9 +66,9 @@ def build_screen_faces(verts_screen: torch.Tensor, vert_attrs: torch.Tensor,
     abs_area = torch.abs(area)
     inv_area = flip / torch.where(abs_area < _EPS, torch.full_like(abs_area, _EPS), abs_area)
 
-    k1, k2 = [1, 2, 0], [2, 0, 1]
-    x1, y1 = x[..., k1], y[..., k1]
-    x2, y2 = x[..., k2], y[..., k2]
+    # the next and the previous vertex of each: x[..., [1, 2, 0]], x[..., [2, 0, 1]]
+    x1, y1 = x.roll(-1, dims=-1), y.roll(-1, dims=-1)
+    x2, y2 = x.roll(1, dims=-1), y.roll(1, dims=-1)
     ea = -(y2 - y1) * inv_area[..., None]
     eb = (x2 - x1) * inv_area[..., None]
     ec = ((y2 - y1) * x1 - (x2 - x1) * y1) * inv_area[..., None]

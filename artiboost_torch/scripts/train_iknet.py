@@ -12,7 +12,6 @@ package's flat layout, which its ``load_iknet_params`` reads too."""
 from __future__ import annotations
 
 import argparse
-import logging
 import time
 from typing import Dict
 
@@ -24,7 +23,7 @@ from artiboost_torch.mano.model import get_mano_model
 from artiboost_torch.postprocess.fitting import (FittingUnit, IKNetTrainStep, load_iknet_params,
                                                  save_iknet_params)
 from artiboost_torch.postprocess.iknet import IKNet
-from artiboost_torch.utils.misc import LOG_FORMAT, logger, resolve_device
+from artiboost_torch.utils.misc import logger, resolve_device
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -42,7 +41,6 @@ def main(argv=None) -> Dict:
     """-> {"losses": per-step metrics, "ms_per_step" (steps after the
     first), "fit_err_mm", "out", "net" (the trained net)}."""
     args = parse(argv)
-    logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt="%H:%M:%S")
     device = resolve_device(args.device)
     mano = get_mano_model(device=device)
     torch.manual_seed(args.seed)

@@ -14,7 +14,6 @@ The npz is the JAX package's flat layout: ``build_refiner`` (REFINER
 from __future__ import annotations
 
 import argparse
-import logging
 import time
 from typing import Dict
 
@@ -28,7 +27,7 @@ from artiboost_torch.artiboost.refiner import (RefineNet, RefinerTrainStep, make
 from artiboost_torch.artiboost.scrambler import Scrambler
 from artiboost_torch.mano.layer import mano_forward
 from artiboost_torch.mano.model import get_mano_model
-from artiboost_torch.utils.misc import LOG_FORMAT, logger, resolve_device
+from artiboost_torch.utils.misc import logger, resolve_device
 
 HO3D_OBJS = ["003_cracker_box", "006_mustard_bottle", "010_potted_meat_can",
              "021_bleach_cleanser"]
@@ -60,7 +59,6 @@ def main(argv=None) -> Dict:
     """-> {"losses": per-step metrics, "ms_per_step" (steps after the
     first), "scrambled_mm", "refined_mm", "out", "net" (the trained net)}."""
     args = parse(argv)
-    logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt="%H:%M:%S")
     device = resolve_device(args.device)
     objs = args.objs or HO3D_OBJS
     mano = get_mano_model(device=device)

@@ -22,7 +22,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 import time
 from typing import Dict, Optional
@@ -36,7 +35,7 @@ from artiboost_torch.metrics.evaluator import build_evaluator
 from artiboost_torch.models.arch import build_arch
 from artiboost_torch.submit.epoch_pass import SubmitEpochPass
 from artiboost_torch.utils.config import load_config
-from artiboost_torch.utils.misc import LOG_FORMAT, logger, resolve_device
+from artiboost_torch.utils.misc import logger, resolve_device
 from artiboost_torch.utils.pretrained import load_arch_pretrained
 from artiboost_torch.utils.prefetch import HostPipeline
 from artiboost_torch.utils.recorder import Recorder
@@ -148,7 +147,6 @@ def main_worker(arg, cfg: Dict, device=None) -> Dict:
 
 def main(argv=None) -> Dict:
     arg = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt="%H:%M:%S")
     device = resolve_device(arg.device)
     cfg = load_config(arg.cfg)
     if arg.batch_size:

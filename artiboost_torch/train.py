@@ -53,7 +53,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 import socket
 import time
@@ -73,7 +72,8 @@ from artiboost_torch.parallel.train_state import TrainStep, eval_step
 from artiboost_torch.utils import profiling
 from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.config import load_config
-from artiboost_torch.utils.misc import LOG_FORMAT, logger, resolve_device
+from artiboost_torch.utils.etqdm import etqdm
+from artiboost_torch.utils.misc import logger, resolve_device
 from artiboost_torch.utils.pretrained import load_arch_pretrained
 from artiboost_torch.utils.prefetch import IN_PLACE, HostPipeline
 from artiboost_torch.utils.recorder import NullRecorder, Recorder
@@ -83,16 +83,21 @@ LOG_EVERY = 20  # train steps between loss summaries (train_artiboost.py:92)
 
 
 class StageTimer:
-    """Host seconds per named stage; synchronizes CUDA at each boundary so
-    device work is charged to the stage that queued it."""
+    """Host seconds per named stage. With ``sync`` (on a CUDA device) it
+    synchronizes at each boundary, so device work is charged to the stage
+    that queued it; without (the default, and what ``train.main`` runs) it
+    never waits on the card and a stage's seconds are the host's time to
+    queue its work. ``mark(wait=True)`` synchronizes whatever ``sync``
+    says: an epoch's end, so that its seconds hold its device work."""
 
-    def __init__(self, device: torch.device):
-        self.sync = device.type == "cuda"
+    def __init__(self, device: torch.device, sync: bool = False):
+        self.cuda = device.type == "cuda"
+        self.sync = sync and self.cuda
         self.seconds: Dict[str, float] = defaultdict(float)
         self.calls: Dict[str, int] = defaultdict(int)
 
-    def mark(self):
-        if self.sync:
+    def mark(self, wait: bool = False):
+        if self.sync or (wait and self.cuda):
             torch.cuda.synchronize()
         return time.perf_counter()
 
@@ -119,68 +124,125 @@ def slice_config(cfg: Dict) -> Dict:
 def train_epoch(loader: ArtiBoostLoader, step: TrainStep, evaluator: Evaluator,
                 timer: StageTimer, summarizer: Optional[Summarizer] = None,
                 stop_trace_after: Optional[int] = None,
-                host: Optional[HostPipeline] = None) -> Dict:
+                host: Optional[HostPipeline] = None, pipeline: bool = True,
+                epoch: int = 0) -> Dict:
     """One train epoch: -> {"steps", "images", "seconds" (host wall clock
-    of the epoch), "final_loss": [per-step device scalars], "real_host"
-    (seconds of the real halves' geometry and decode, on the producer)}.
-    The host halves of ``loader.iter_plan``'s real batches come from
-    ``host.host_halves`` (made in place without a ``host``; the stage
-    ``real wait`` is the time the step waited for one); their device
-    half (upload, flip, warp) is the stage ``real batch``. Each step is a
-    trace range ``train#<optimizer step>``; a running trace stops after
-    step ``stop_trace_after``. Under a process group each step trains on
-    this rank's rows; "images" counts the global batches', the evaluator
-    and "final_loss" hold the global figures after the epoch."""
+    of the epoch, its device work included), "final_loss": [per-step
+    device scalars], "real_host" (seconds of the real halves' geometry and
+    decode, on the producer)}. The host halves of ``loader.iter_plan``'s
+    real batches come from ``host.host_halves`` (made in place without a
+    ``host``; the stage ``real wait`` is the time the step waited for one);
+    their device half (upload, flip, warp) is the stage ``real batch``.
+
+    With ``pipeline`` (``TRAIN.PIPELINE_SYNTH``, JAX
+    ``train_artiboost.py:71-87``) the synth half of step N+1 is rendered
+    before step N's device half and train step are queued, so the device
+    queue holds render N+1 ahead of train N; step N's loss draws are taken
+    before that render, so the generator gives S0, L0, S1, L1, ... in
+    either order and both compute the same numbers. Nothing here waits on
+    the card but the loss summary and the bar's postfix every
+    ``LOG_EVERY`` steps and the epoch's end.
+
+    Each step is a trace range ``train#<optimizer step>``; a running trace
+    stops after step ``stop_trace_after``. Under a process group each step
+    trains on this rank's rows (each rank renders its own rows of step
+    N+1 ahead: no collective sits in a render); "images" counts the global
+    batches', the evaluator and "final_loss" hold the global figures after
+    the epoch, and the loss summary is the global batch's."""
     evaluator.reset_all()
     out = {"steps": 0, "images": 0, "final_loss": [], "real_host": [0.0, 0.0]}
     real_data = loader.real_dataset
     t = t_start = timer.mark()
-    halves = (host or IN_PLACE).host_halves(real_data, loader.iter_plan(),
-                                            loader._mixed_counts()[0])
-    for bidx, (hb, sidx) in enumerate(halves):
-        t = timer.add("real wait", t)
-        real = None
-        if hb is not None:
-            with profiling.trace("data/real_device"):
-                real = loader.real_part(hb)
-            out["real_host"] = [a + b for a, b in zip(out["real_host"], hb.seconds)]
-            t = timer.add("real batch", t)
+    bar = etqdm((host or IN_PLACE).host_halves(real_data, loader.iter_plan(),
+                                               loader._mixed_counts()[0]),
+                total=len(loader), desc=f"TRAIN {epoch}")
+    halves = iter(bar)
+
+    def render(plan_sidx):
+        sidx = loader.synth_indices(plan_sidx)
+        return None if sidx is None else loader.synth_part(sidx)
+
+    item = next(halves, None)
+    t = timer.add("real wait", t)
+    synth_next = None
+    if pipeline and item is not None:
+        synth_next = render(item[1])
+        t = timer.add("synth batch", t)
+    bidx = 0
+    while item is not None:
+        hb = item[0]
         with profiling.step_trace("train", step.step):
-            sidx = loader.synth_indices(sidx)
-            synth = None if sidx is None else loader.synth_part(sidx)
+            if pipeline:
+                synth = synth_next
+                loss_draws = loader.draws.loss(step.criterion)
+                item = next(halves, None)
+                t = timer.add("real wait", t)
+                synth_next = None if item is None else render(item[1])
+            else:
+                synth = render(item[1])
+                loss_draws = loader.draws.loss(step.criterion)
             t = timer.add("synth batch", t)
+            real = None
+            if hb is not None:
+                with profiling.trace("data/real_device"):
+                    real = loader.real_part(hb)
+                out["real_host"] = [a + b for a, b in zip(out["real_host"], hb.seconds)]
+                t = timer.add("real batch", t)
             batch = union_concat([p for p in (real, synth) if p])
             with profiling.trace("artiboost/train_step"):
-                preds, losses = step(batch, loader.draws.loss(step.criterion))
+                preds, losses = step(batch, loss_draws)
                 t = timer.add("train step", t)
             evaluator.feed_all(preds, batch, losses)
-            if summarizer is not None and bidx % LOG_EVERY == 0:
-                summarizer.summarize_losses(losses, step.step, prefix="train")
+            if bidx % LOG_EVERY == 0:
+                bar.set_postfix_str(str(evaluator))
+                if summarizer is not None:
+                    summarizer.summarize_losses(global_losses(losses), step.step,
+                                                prefix="train")
             t = timer.add("metric+mining", t)
         if bidx == stop_trace_after and profiling.stop_trace():
             t = timer.mark()
         out["steps"] += 1
         out["images"] += int(batch["image"].shape[0]) * mesh.world()
         out["final_loss"].append(losses["final_loss"])
+        bidx += 1
+        if not pipeline:
+            item = next(halves, None)
+            t = timer.add("real wait", t)
     if mesh.world() > 1 and out["final_loss"]:
         out["final_loss"] = list(mesh.all_reduce_mean(torch.stack(out["final_loss"])))
     evaluator.all_reduce()
-    out["seconds"] = timer.mark() - t_start
+    out["seconds"] = timer.mark(wait=True) - t_start
     return out
 
 
+def global_losses(losses: Dict) -> Dict:
+    """The loss dict as the global batch's: under a process group each
+    rank's values (its rows' sums over the global valid count) averaged
+    over the ranks in one collective, as JAX's global-batch summary reads
+    them; one process's dict as it is."""
+    keys = [k for k, v in losses.items() if v is not None]
+    if mesh.world() == 1 or not keys:
+        return {k: losses[k] for k in keys}
+    return dict(zip(keys, mesh.all_reduce_mean(torch.stack([losses[k].detach().float()
+                                                            for k in keys]))))
+
+
 def val_epoch(loader: ArtiBoostLoader, model: torch.nn.Module, criterion,
-              evaluator: Evaluator, timer: StageTimer) -> Dict:
+              evaluator: Evaluator, timer: StageTimer, epoch: int = 0) -> Dict:
     """The val sweep: pure-synth batches through the model with its running
-    statistics, the evaluator refilled. -> {"batches", "images"}."""
+    statistics, the evaluator refilled; not pipelined, as in JAX.
+    -> {"batches", "images"}."""
     evaluator.reset_all()
     out = {"batches": 0, "images": 0}
     t = timer.mark()
-    for batch in loader.iter_val():
+    bar = etqdm(loader.iter_val(), total=loader.len_val(), desc=f"VAL {epoch}")
+    for bidx, batch in enumerate(bar):
         t = timer.add("synth batch", t)
         preds, losses = eval_step(model, criterion, batch, loader.draws.loss(criterion))
         t = timer.add("forward", t)
         evaluator.feed_all(preds, batch, losses)
+        if bidx % LOG_EVERY == 0:
+            bar.set_postfix_str(str(evaluator))
         t = timer.add("metric+mining", t)
         out["batches"] += 1
         out["images"] += int(batch["image"].shape[0]) * mesh.world()
@@ -190,7 +252,7 @@ def val_epoch(loader: ArtiBoostLoader, model: torch.nn.Module, criterion,
 
 def test_epoch(test_data, batch_size: int, model: torch.nn.Module, criterion,
                evaluator: Evaluator, draws: DrawSource, timer: StageTimer,
-               host: Optional[HostPipeline] = None) -> Dict:
+               host: Optional[HostPipeline] = None, epoch: int = 0) -> Dict:
     """The TEST pass (``train_artiboost.py:372-378``): every sample of the
     test split once, the tail batch repeat-padded and masked by
     SAMPLE_VALID (``padded_host_loader``, its host halves prefetched by
@@ -202,10 +264,14 @@ def test_epoch(test_data, batch_size: int, model: torch.nn.Module, criterion,
     out = {"batches": 0, "images": len(test_data)}
     t = timer.mark()
     rows = mesh.rows(batch_size) if mesh.world() > 1 else None
-    for batch in padded_host_loader(test_data, batch_size, host=host, rows=rows):
+    bar = etqdm(padded_host_loader(test_data, batch_size, host=host, rows=rows),
+                total=-(-len(test_data) // batch_size), desc=f"TEST {epoch}")
+    for batch in bar:
         preds, losses = eval_step(model, criterion, batch, draws.loss(criterion))
         n_valid = min(batch_size, len(test_data) - out["batches"] * batch_size)
         evaluator.feed_all(preds, batch, losses, n_global=n_valid)
+        if out["batches"] % LOG_EVERY == 0:
+            bar.set_postfix_str(str(evaluator))
         out["batches"] += 1
     evaluator.all_reduce()
     timer.add("test pass", t)
@@ -246,7 +312,10 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
     decode the real splits' images, whose host halves are made two batches
     ahead (``utils/prefetch.py``). Without ``model_state`` the ARCH's
     ``BACKBONE.PRETRAINED`` and ``PRETRAINED`` files load as the JAX entry
-    point loads them (``utils/pretrained.py``). Returns the loader, the
+    point loads them (``utils/pretrained.py``). ``TRAIN.PIPELINE_SYNTH``
+    (default true) renders each train step's synth half one step ahead
+    (``train_epoch``). ``timer`` (default: one that never waits on the card)
+    collects the per-stage host seconds. Returns the loader, the
     evaluators, model, train step, timer and the per-epoch counts."""
     if resume and recorder is None:
         raise ValueError("resume needs the recorder of the experiment to resume")
@@ -255,6 +324,9 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
     batch_size = int(cfg["TRAIN"]["BATCH_SIZE"])
     n_epochs = int(cfg["TRAIN"]["EPOCH"]) if epochs is None else int(epochs)
     seed = int(cfg["TRAIN"].get("MANUAL_SEED", 1))
+    # PIPELINE_SYNTH (default on, JAX train_artiboost.py:321-326): render
+    # each step's synth half one step ahead of its train step
+    pipeline = bool(cfg["TRAIN"].get("PIPELINE_SYNTH", True))
     timer = timer or StageTimer(device)
 
     t = timer.mark()
@@ -299,7 +371,7 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
 
         def test_pass(epoch: int) -> Dict:
             res = test_epoch(test_data, batch_size, arch, criterion, test_evaluator,
-                             loader.draws, timer, host)
+                             loader.draws, timer, host, epoch=epoch)
             res["measures"] = test_evaluator.get_measures_all_striped()
             if recorder is not None:
                 recorder.record_evaluator(test_evaluator, epoch, "test")
@@ -322,7 +394,8 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
             timer.add("pose sweep", t)
             record = {"epoch": epoch, "train": train_epoch(
                 loader, step, evaluator, timer, summarizer,
-                stop_trace_after=profile[1] if traced else None, host=host)}
+                stop_trace_after=profile[1] if traced else None, host=host,
+                pipeline=pipeline, epoch=epoch)}
             profiling.stop_trace()  # a no-op unless a short epoch left the trace running
             record["train"]["measures"] = evaluator.get_measures_all_striped()
             if summarizer is not None:
@@ -334,7 +407,7 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
                 with profiling.trace("artiboost/prepare_val"):
                     loader.prepare_val()
                 timer.add("pose sweep", t)
-                record["val"] = val_epoch(loader, arch, criterion, evaluator, timer)
+                record["val"] = val_epoch(loader, arch, criterion, evaluator, timer, epoch)
                 record["val"]["measures"] = evaluator.get_measures_all_striped()
                 if summarizer is not None:
                     summarizer.summarize_evaluator(evaluator, epoch, "val")
@@ -412,7 +485,6 @@ def main(argv=None) -> Dict:
     args = ap.parse_args(argv)
     if not (args.cfg or args.resume):
         ap.error("--cfg is required unless --resume is given")
-    logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt="%H:%M:%S")
     device = resolve_device(args.device)
     if args.n_devices and args.n_devices > 1 and not args.multihost:
         import sys

@@ -3,7 +3,7 @@
 ``anakin/utils/misc.py`` lines 64-119)."""
 from __future__ import annotations
 
-import logging
+import functools
 import math
 import os
 from typing import Optional, Union
@@ -11,8 +11,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-logger = logging.getLogger("artiboost_torch")
-LOG_FORMAT = "[%(asctime)s %(levelname)s] %(message)s"
+from artiboost_torch.utils.logger import logger  # noqa: F401  (the port's logger)
 
 
 class CONST:
@@ -81,3 +80,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "artiboost_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU explicitly")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The constant ``torch.tensor(values, dtype)`` on ``device``, copied
+    there once a process and shared by every caller, who must not write to
+    it. Made in a step instead, such a tensor (and a Python list used as an
+    index) is copied from pageable host memory, which waits on the card."""
+    return torch.tensor(values, dtype=dtype, device=device)

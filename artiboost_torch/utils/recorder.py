@@ -16,7 +16,6 @@ torch generator state ``rng_state`` stands in its place. A
 from __future__ import annotations
 
 import json
-import logging
 import math
 import os
 import subprocess
@@ -28,6 +27,7 @@ import torch
 import yaml
 
 from artiboost_torch.metrics.vismetric import VisMetric
+from artiboost_torch.utils.logger import add_file_handler
 from artiboost_torch.utils.misc import logger
 
 
@@ -141,9 +141,7 @@ class Recorder:
         if not eval_only:
             os.makedirs(self.ckpt_dir, exist_ok=True)
         os.makedirs(self.eval_dir, exist_ok=True)
-        self._log = logging.FileHandler(os.path.join(self.dump_path, "log.txt"))
-        self._log.setFormatter(logging.Formatter("%(asctime)s | %(levelname)s | %(message)s"))
-        logger.addHandler(self._log)
+        self._log = add_file_handler(os.path.join(self.dump_path, "log.txt"))
         if not resume_path:
             dump_config(cfg, os.path.join(self.dump_path, "dump_cfg.yaml"))
 

@@ -8,6 +8,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from artiboost_torch.utils.misc import device_constant
+
 
 def skew(v: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 3, 3) skew-symmetric cross-product matrix."""
@@ -169,7 +171,7 @@ def batch_uvd2xyz(uvd: torch.Tensor, root_joint: torch.Tensor, intr: torch.Tenso
                   ) -> torch.Tensor:
     """Normalized uvd (B, N, 3) -> camera-space xyz with the GT root depth
     (reference transform.py:473-546; unit reference bone length)."""
-    res = torch.tensor(inp_res, dtype=uvd.dtype, device=uvd.device)
+    res = device_constant(tuple(inp_res), uvd.device, uvd.dtype)
     uv = uvd[..., :2] * res
     d = (uvd[..., 2] - 0.5) * depth_range
     z = d + root_joint[:, 2:3]

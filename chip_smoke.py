@@ -115,7 +115,13 @@ Phases, each fatal on failure:
      predicted joints than IKNet's warm start, the two overlay PNGs, one B2
      launch an overlay tile (32), finite measures; the first tile's raster
      held against B2's twin and timed; it prints the eval pass's, the
-     FittingUnit's and the draw's ms per batch of 128.
+     FittingUnit's and the draw's ms per batch of 128. Phase 13b runs the
+     four other released evaluation configs (HOPRegNet on HO3D v2, the
+     two HO3D v3 configs, DexYCB) the same way from a random init, with
+     drawing, on phase 11's files and an HO3D v3 evaluation split and a
+     DexYCB s0 test split of 128 frames each written beside them: each
+     dump has a row a frame (``pred_dexycb.json`` for DexYCB, with an AR
+     in [0, 1]) and each overlay tile launched B2 once.
  14. data parallelism at full width: the released Clas recipe through
      ``artiboost_torch.train.main``, synth-only (CONFIG_LEN_TRAIN 512: 4
      steps of a global batch of 128, VAL_LEN 128, 1 epoch), run by 2
@@ -137,16 +143,34 @@ Phases, each fatal on failure:
      writing its npz to a temporary directory: finite losses, the mean of
      the last 10 steps below that of the first 10, each npz loaded back in
      the port equal to the trained net; ms a step and the held-out figures.
+ 16. the pipelined train step: phase 8's run (synth-only, 2 epochs of 8
+     steps of 128, VAL_LEN 2 x 128, a trace of epoch 0's steps 1-6) with
+     TRAIN.PIPELINE_SYNTH true (the default) and false, neither taking a
+     stage wait: each order's epoch-1 train img/s, its trace's idle share
+     and step wall, host, wait and device ms, and its host waits a train
+     step (sync debug mode over epoch 0's steps 2-6, by file:line); B1
+     launched once a synth batch in each; the first two synth batches
+     byte-equal; then, in a process of its own under cuDNN's and torch's
+     deterministic algorithms, a pipelined and two unpipelined runs: the
+     orders' per-step losses and weight maps bit-equal, or within the two
+     unpipelined runs' spread; the pipelined run's waits a step at most
+     ALLOWED_WAITS_PER_STEP;
+ 17. the mining scripts, short: ``scripts.mining_planted --plant noise``
+     (1 seed, 2 epochs, method_1 and uniform) and ``scripts.mining_ab`` (1
+     seed, 2 epochs, its three methods) on config/mining_ab.yaml: their
+     JSON lines finite, uniform's mass ratio exactly 1.000, B1 launched.
 Every launch counter is zeroed just before phases 4 to 11 and 13, each
-run of phase 12 and, in its own process, each run of phase 14, and read
-just after each. TF32 is off. The lines before the last: the kernel table
-as one JSON object (B1 launches from phases 8 to 12 and 14, the two ranks'
-of phase 14 also apart, B2 from 8 to 13, summed and by phase, B3 launches
-from phase 6) and the card's name and power limit; the last line: the ok
-JSON.
+run of phases 12, 13b and 16, phase 17 and, in its own process, each run
+of phase 14, and read just after each. TF32 is off. The lines before the
+last: the smoke's seconds, the kernel table as one JSON object (B1
+launches from phases 8 to 12, 14, 16 (its pipelined run) and 17, the two
+ranks' of phase 14 also apart, B2 from 8 to 13b and 17, summed and by
+phase, B3 launches from phase 6) and the card's name and power limit; the
+last line: the ok JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
-       (``python3 chip_smoke.py --dp-worker <json>`` is phase 14's own process;
+       (``python3 chip_smoke.py --dp-worker <json>`` is phase 14's own process,
+       ``--order-worker <json>`` phase 16's deterministic one;
        ``python3 chip_smoke.py --dp-cards`` runs phase 14's recipe one rank a
        card over every card of a machine of 2 or more, by NCCL)
 """
@@ -438,13 +462,16 @@ def _union_ms(intervals, lo, hi) -> float:
 
 
 def trace_figures(path: str) -> dict:
-    """Phase 8's figures from its Chrome trace, over train steps 1 to the
-    last traced one (step 0 holds first-use costs): the device idle share
-    (1 - the union of kernel, memcpy and memset intervals over the window's
-    wall time); per ``artiboost/train_step`` range its wall time, the host
-    time until the stage's ``cudaDeviceSynchronize`` and the device's busy
-    time inside it; the host time in ``raster/prepare_raster`` against the
-    ``raster_uv_kernel`` time."""
+    """A train run's figures from its Chrome trace, over train steps 1 to
+    the last traced one (step 0 holds first-use costs): the device idle
+    share (1 - the union of kernel, memcpy and memset intervals over the
+    window's wall time); per step (a ``train#<n>`` range: with
+    PIPELINE_SYNTH the render of step n+1 and the train step n) its wall
+    time (from its start to the next step's), its host time (the range
+    less the time the host waited in CUDA runtime calls that block:
+    synchronizes, blocking copies), that wait, and the device's busy time
+    (the window's over its steps); the host time in
+    ``raster/prepare_raster`` against the ``raster_uv_kernel`` time."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
 
@@ -456,27 +483,42 @@ def trace_figures(path: str) -> dict:
     def mean(xs):
         return sum(xs) / len(xs)
 
+    def blocking(n):
+        return "Synchronize" in n or n in ("cudaMemcpy", "cudaMemcpy2D", "cudaMemset")
+
     steps = sorted(spans("user_annotation", lambda n: n.startswith("train#")), key=lambda e: e["ts"])
-    check(len(steps) >= 2, f"the trace holds {len(steps)} train steps")
+    check(len(steps) >= 3, f"the trace holds {len(steps)} train steps")
     lo, hi = steps[1]["ts"], max(e["ts"] + e["dur"] for e in steps[1:])
     device = [(e["ts"], e["ts"] + e["dur"]) for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     busy = _union_ms(device, lo, hi)
     wall = (hi - lo) / 1e3
     split = []
-    for r in spans("user_annotation", lambda n: n == "artiboost/train_step", lo, hi):
+    for r, nxt in zip(steps[1:], steps[2:] + [None]):
         a, b = r["ts"], r["ts"] + r["dur"]
-        wait = sum(e["dur"] for e in spans("cuda_runtime", lambda n: "Synchronize" in n, a, b))
-        split.append((r["dur"] / 1e3, (r["dur"] - wait) / 1e3, _union_ms(device, a, b)))
+        wait = sum(e["dur"] for e in spans("cuda_runtime", blocking, a, b)) / 1e3
+        step_wall = ((nxt["ts"] if nxt else b) - a) / 1e3
+        split.append((step_wall, r["dur"] / 1e3 - wait, wait))
     prep = [e["dur"] / 1e3 for e in spans("user_annotation",
                                           lambda n: n == "raster/prepare_raster", lo, hi)]
     uv = [e["dur"] / 1e3 for e in spans("kernel", lambda n: "raster_uv_kernel" in n, lo, hi)]
-    check(split and prep and uv, f"the trace window lacks train_step ({len(split)}), "
-          f"prepare_raster ({len(prep)}) or raster_uv_kernel ({len(uv)}) events")
-    return {"steps": len(steps) - 1, "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+    check(prep and uv, f"the trace window lacks prepare_raster ({len(prep)}) or "
+          f"raster_uv_kernel ({len(uv)}) events")
+    n = len(split)
+    return {"steps": n, "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
             "step_wall_ms": mean([x[0] for x in split]), "step_host_ms": mean([x[1] for x in split]),
-            "step_device_ms": mean([x[2] for x in split]), "n_step": len(split),
+            "step_wait_ms": mean([x[2] for x in split]), "step_device_ms": busy / n, "n_step": n,
             "prep_ms": mean(prep), "n_prep": len(prep), "uv_ms": mean(uv), "n_uv": len(uv)}
+
+
+def trace_line(fig: dict) -> str:
+    return (f"train steps 1-{fig['steps']} of epoch 0, {fig['wall_ms']:.3f} ms: device busy "
+            f"{fig['busy_ms']:.3f} ms, idle share {fig['idle_share']:.4f}; a step (mean of "
+            f"{fig['n_step']}): wall {fig['step_wall_ms']:.3f} ms, host {fig['step_host_ms']:.3f} "
+            f"ms working and {fig['step_wait_ms']:.3f} ms waiting on the card, device busy "
+            f"{fig['step_device_ms']:.3f} ms; prepare_raster host {fig['prep_ms']:.3f} ms a call "
+            f"({fig['n_prep']} calls) against raster_uv_kernel {fig['uv_ms']:.4f} ms a launch "
+            f"({fig['n_uv']} launches)")
 
 
 def event_tags(run_dir: str) -> set:
@@ -590,14 +632,9 @@ def released_entry_point(card: str, read_counts, zero_counts) -> dict:
     for stage in ("dataset init", "pose sweep", "synth batch", "train step", "forward",
                   "metric+mining", "test pass"):
         n = max(timer.calls[stage], 1)
-        print(f"  stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
+        print(f"  host stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
               f"{timer.seconds[stage] * 1e3 / n:.3f} ms per call over {timer.calls[stage]} calls")
-    print(f"trace ({card}), train steps 1-{fig['steps']} of epoch 0, {fig['wall_ms']:.3f} ms: "
-          f"device busy {fig['busy_ms']:.3f} ms, idle share {fig['idle_share']:.4f}; train step "
-          f"(mean of {fig['n_step']}): wall {fig['step_wall_ms']:.3f} ms, host until its "
-          f"synchronize {fig['step_host_ms']:.3f} ms, device busy {fig['step_device_ms']:.3f} ms; "
-          f"prepare_raster host {fig['prep_ms']:.3f} ms a call ({fig['n_prep']} calls) against "
-          f"raster_uv_kernel {fig['uv_ms']:.4f} ms a launch ({fig['n_uv']} launches)", flush=True)
+    print(f"trace ({card}), {trace_line(fig)}", flush=True)
     return launches
 
 
@@ -745,7 +782,7 @@ def other_recipe(phase: int, recipe: str, card: str, read_counts, zero_counts) -
     for stage in ("dataset init", "pose sweep", "synth batch", "train step", "forward",
                   "metric+mining", "test pass"):
         n = max(timer.calls[stage], 1)
-        print(f"  stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
+        print(f"  host stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
               f"{timer.seconds[stage] * 1e3 / n:.3f} ms per call over {timer.calls[stage]} calls")
     return launches
 
@@ -940,12 +977,9 @@ def real_data_recipe(card: str, kernels: dict, hold, read_counts, zero_counts, t
     for stage in ("dataset init", "pose sweep", "real wait", "real batch", "synth batch",
                   "train step", "forward", "metric+mining", "test pass"):
         n = max(timer.calls[stage], 1)
-        print(f"  stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
+        print(f"  host stage {stage}: {timer.seconds[stage] * 1e3:.2f} ms total, "
               f"{timer.seconds[stage] * 1e3 / n:.3f} ms per call over {timer.calls[stage]} calls")
-    print(f"  trace ({card}), train steps 1-{fig['steps']} of epoch 0, {fig['wall_ms']:.3f} ms: "
-          f"device busy {fig['busy_ms']:.3f} ms, idle share {fig['idle_share']:.4f}; train step "
-          f"wall {fig['step_wall_ms']:.3f} ms, host until its synchronize "
-          f"{fig['step_host_ms']:.3f} ms, device busy {fig['step_device_ms']:.3f} ms", flush=True)
+    print(f"  trace ({card}), {trace_line(fig)}", flush=True)
     inp = prepare_raster(*args, **kw)
     hold(raster_uv, inp, "phase 11 train batch at the YCB assets")
     print(f"  raster_uv at the real assets: F={inp.order.shape[-1]} (LOD of the 2048-vertex "
@@ -1230,11 +1264,6 @@ def dp_worker(spec: dict):
 
     sys.path.insert(0, REPO)
     os.chdir(spec["workdir"])
-    import logging
-
-    from artiboost_torch.utils.misc import LOG_FORMAT
-
-    logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt="%H:%M:%S")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     import numpy as np
@@ -1682,7 +1711,328 @@ def trainers(card: str) -> None:
           f"back equal.", flush=True)
 
 
+
+# phase 16: the host waits that stay in a train step that does not log
+# (PERF.md lists them): each is a file:line where sync debug mode warns
+ALLOWED_WAITS_PER_STEP = 0
+ORDER_STEPS = range(2, 7)  # the train steps of epoch 0 whose waits are counted
+
+
+def order_config():
+    """Phase 8's run (the released Clas recipe, synth-only: CONFIG_LEN_TRAIN
+    1024, 8 steps of 128; VAL_LEN 2 x 128; EVAL_FREQ 1, VAL_START_EPOCH 0)
+    without its TEST split."""
+    from artiboost_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
+    cfg["DATASET"].pop("TEST", None)
+    cfg["MANAGER"].update(CONFIG_LEN_TRAIN=1024, VAL_LEN=2 * 128)
+    cfg["TRAIN"].update(EVAL_FREQ=1, VAL_START_EPOCH=0)
+    return cfg
+
+
+def order_run(pipeline: bool, trace_dir: Optional[str] = None, count_waits: bool = False) -> dict:
+    """``train.run`` of ``order_config`` for 2 epochs with PIPELINE_SYNTH
+    ``pipeline`` -> its per-step losses, the weight map after the last
+    reweight, the first two synth batches' images (on the host), epoch 1's
+    train img/s, the trace's path and, with ``count_waits``, every host
+    wait that sync debug mode reports in epoch 0's ORDER_STEPS, by the
+    file:line of the port's innermost frame that made it (and the line
+    that warned, where that is torch's)."""
+    import collections
+    import contextlib
+    import traceback
+    import warnings
+
+    import torch
+
+    from artiboost_torch import train
+    from artiboost_torch.artiboost.loader import ArtiBoostLoader
+
+    cfg = order_config()
+    cfg["TRAIN"]["PIPELINE_SYNTH"] = pipeline
+    first, state = [], {"epoch": 0, "bidx": 0}
+    orig = {"part": ArtiBoostLoader.synth_part, "trace": train.profiling.step_trace,
+            "epoch": train.train_epoch}
+
+    def synth_part(self, sidx):
+        out = orig["part"](self, sidx)
+        if len(first) < 2:
+            first.append(out["image"].clone())
+        return out
+
+    @contextlib.contextmanager
+    def step_trace(name, step):
+        on = count_waits and state["epoch"] == 0 and state["bidx"] in ORDER_STEPS
+        if on:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with orig["trace"](name, step):
+                yield
+        finally:
+            if on:
+                torch.cuda.set_sync_debug_mode(0)
+            state["bidx"] += 1
+
+    def train_epoch(*args, **kw):
+        state.update(epoch=kw.get("epoch", 0), bidx=0)
+        return orig["epoch"](*args, **kw)
+
+    waits = collections.Counter()
+    package = os.path.join(REPO, "artiboost_torch")
+
+    def on_warning(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        if any(f.name == "set_sync_debug_mode" for f in stack[-3:]):
+            # raised by the call that switches the mode on at a step's start
+            # (seen once, in one order only), not by the step's work
+            waits["(the switch of sync debug mode)"] += 1
+            return
+        ours = [f for f in stack if f.filename.startswith(package)]
+        site = f"{os.path.relpath(ours[-1].filename, REPO)}:{ours[-1].lineno}" if ours else "?"
+        if not filename.startswith(package):
+            site += f" (via {os.path.basename(os.path.dirname(filename))}/" \
+                    f"{os.path.basename(filename)}:{lineno})"
+        waits[site] += 1
+
+    ArtiBoostLoader.synth_part, train.profiling.step_trace = synth_part, step_trace
+    train.train_epoch = train_epoch
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            out = train.run(cfg, epochs=2, device="cuda", test_freq=0,
+                            profile=(trace_dir, 6) if trace_dir else None)
+            torch.cuda.synchronize()
+    finally:
+        ArtiBoostLoader.synth_part, train.profiling.step_trace = orig["part"], orig["trace"]
+        train.train_epoch = orig["epoch"]
+    hist = out["history"]
+    traces = sorted(os.path.join(trace_dir, n) for n in os.listdir(trace_dir)) if trace_dir \
+        else []
+    return {"losses": [v for r in hist for v in r["train"]["final_loss"]],
+            "weight_map": out["loader"].ccv.sample_weight_map.cpu(),
+            "first": [t.cpu() for t in first], "waits": waits,
+            "steps": sum(r["train"]["steps"] for r in hist),
+            "val_batches": sum(r.get("val", {}).get("batches", 0) for r in hist),
+            "rate": hist[1]["train"]["images"] / hist[1]["train"]["seconds"],
+            "trace": traces[-1] if traces else None}
+
+
+def order_worker(spec: dict):
+    """``chip_smoke.py --order-worker <json>``: phase 16's deterministic runs
+    in a process of their own (cuBLAS reads CUBLAS_WORKSPACE_CONFIG when it
+    starts): cuDNN and torch's deterministic algorithms, then one run per
+    entry of ``spec["orders"]``; writes their losses and weight maps to
+    ``spec["out"]``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = [order_run(p) for p in spec["orders"]]
+    torch.save([{k: r[k] for k in ("losses", "weight_map", "first")} for r in runs], spec["out"])
+
+
+def pipelined_order(card: str, read_counts, zero_counts) -> dict:
+    """Phase 16: phase 8's run pipelined (the default) and with
+    PIPELINE_SYNTH false, in this process, neither waiting at a stage:
+    epoch 1's train img/s, the trace's figures (epoch 0's steps 1-6) and
+    the host waits of epoch 0's steps 2-6 under sync debug mode; B1 once a
+    synth batch in each; the first two synth batches byte-equal. Then, in
+    a process with cuDNN and torch deterministic, a pipelined run and two
+    unpipelined ones: the per-step losses and the weight maps of the two
+    orders bit-equal, or within the two unpipelined runs' own spread.
+    -> the pipelined run's launches."""
+    import torch
+
+    got, launches = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_order_")
+    try:
+        for name, pipeline in (("pipelined", True), ("unpipelined", False)):
+            zero_counts()
+            got[name] = order_run(pipeline, os.path.join(tmp, name), count_waits=True)
+            launches[name] = read_counts()
+            got[name]["fig"] = trace_figures(got[name]["trace"])
+        spec = {"orders": [True, False, False], "out": os.path.join(tmp, "det.pt")}
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--order-worker",
+                              json.dumps(spec)], env=env, capture_output=True, text=True,
+                             timeout=600)
+        check(res.returncode == 0, f"phase 16 deterministic runs exited {res.returncode}:\n"
+                                   f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        det = torch.load(spec["out"], weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    p, u = got["pipelined"], got["unpipelined"]
+    for r in (p, u):
+        check(r["steps"] == 16 and r["val_batches"] == 4,
+              f"phase 16 ran {r['steps']} steps and {r['val_batches']} val batches")
+    want = {"raster_uv": 16 + 4, "raster_rgb": 0, "raster_rgb_binned": 0}
+    check(launches["pipelined"] == launches["unpipelined"] == want,
+          f"phase 16 launches {launches}, expected one uv a synth batch: {want}")
+    check(all(torch.equal(a, b) for a, b in zip(p["first"], u["first"])) and len(p["first"]) == 2,
+          "phase 16: the two orders' first synth batches differ")
+    for r in (p, u):
+        check(all(math.isfinite(v) for v in r["losses"]), f"phase 16: losses {r['losses']}")
+
+    def gap(a, b):
+        return (max(abs(x - y) for x, y in zip(a["losses"], b["losses"])),
+                float((a["weight_map"] - b["weight_map"]).abs().max()))
+
+    same = gap(det[0], det[1]) == (0.0, 0.0)
+    spread, apart = gap(det[1], det[2]), gap(det[0], det[1])
+    n_steps = len(ORDER_STEPS)
+    per_step = {k: sum(n for site, n in r["waits"].items() if not site.startswith("(")) / n_steps
+                for k, r in got.items()}
+    print(f"phase 16, PIPELINE_SYNTH true against false ({card}): phase 8's run (released Clas "
+          f"recipe, synth-only, 2 epochs of 8 steps of 128, 2 val batches each), no stage "
+          f"waits; launches {launches['pipelined']} in each; the first two synth batches "
+          f"byte-equal; deterministic runs: pipelined against unpipelined "
+          f"{'bit-equal' if same else 'apart by %r' % (apart,)} (losses, weight map), two "
+          f"unpipelined runs apart by {spread}; in the default mode the orders' losses part by "
+          f"{gap(p, u)[0]:.3e} and their weight maps by {gap(p, u)[1]:.3e}", flush=True)
+    for name, r in got.items():
+        print(f"  {name} ({card}): train {r['rate']:.2f} img/s in epoch 1; trace "
+              f"{trace_line(r['fig'])}", flush=True)
+        print(f"  {name} ({card}): {per_step[name]:.1f} host waits a train step (sync debug "
+              f"mode over epoch 0's steps {ORDER_STEPS.start}-{ORDER_STEPS.stop - 1}): "
+              + (", ".join(f"{site} x{n}" for site, n in r["waits"].most_common()) or "none"),
+              flush=True)
+    check(same or (apart[0] <= spread[0] and apart[1] <= spread[1]),
+          f"phase 16: deterministic pipelined and unpipelined runs part by {apart} (losses, "
+          f"weight map), beyond two unpipelined runs' {spread}")
+    check(per_step["pipelined"] <= ALLOWED_WAITS_PER_STEP,
+          f"phase 16: {per_step['pipelined']} host waits a step in the pipelined run, "
+          f"{ALLOWED_WAITS_PER_STEP} allowed: {dict(p['waits'])}")
+    return launches["pipelined"]
+
+
+def mining_scripts(card: str, read_counts, zero_counts) -> dict:
+    """Phase 17: ``scripts.mining_planted --plant noise`` (1 seed, 2 epochs,
+    ``method_1`` and ``uniform``) and ``scripts.mining_ab`` (1 seed, 2
+    epochs, its three methods) on config/mining_ab.yaml at its size: finite
+    values, ``uniform``'s mass ratio exactly 1.000, B1 launched. -> the
+    launches of both."""
+    import torch
+
+    from artiboost_torch.scripts import mining_ab, mining_planted
+
+    zero_counts()
+    t0 = time.perf_counter()
+    planted = mining_planted.main(["--plant", "noise", "--epochs", "2", "--seeds", "1"])
+    ab = mining_ab.main(["--epochs", "2", "--seeds", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rows = planted["rows"] + ab["rows"]
+
+    def finite(row):
+        vals = [v for v in row.values() if isinstance(v, float)]
+        vals += [v for v in row.get("val_epe_dist_mm", {}).values()]
+        return all(math.isfinite(v) for v in vals)
+
+    check(len(rows) == 5 and all(finite(r) for r in rows), f"phase 17 rows {rows}")
+    uni = [r for r in planted["rows"] if r["method"] == "uniform"]
+    check(len(uni) == 1 and uni[0]["mass_ratio_vs_uniform"] == 1.0,
+          f"phase 17: uniform's mass ratio {uni}")
+    check(launches["raster_uv"] > 0, f"phase 17 launches {launches}: B1 did not launch")
+    m1 = next(r for r in planted["rows"] if r["method"] == "method_1")
+    print(f"phase 17, mining scripts ({card}): mining_planted --plant noise (1 seed, 2 epochs) "
+          f"and mining_ab (1 seed, 2 epochs) in {wall:.2f} s; launches {launches}; method_1's "
+          f"mass ratio {m1['mass_ratio_vs_uniform']}, uniform's "
+          f"{uni[0]['mass_ratio_vs_uniform']}", flush=True)
+    return launches
+
+
+EVAL_CONFIGS = ("eval_ho3dv2_regbased_artiboost", "eval_ho3dv3_clasbased_artiboost",
+                "eval_ho3dv3_clasbased_sym_artiboost", "eval_dexycb_clasbased_sym_artiboost")
+
+
+def other_eval_configs(card: str, real: dict, read_counts, zero_counts) -> dict:
+    """Phase 13b: ``submit_reload.main`` on the four other released
+    evaluation configs at full width (ResNet34, 224 x 224, batch 128), a
+    random init each (no checkpoint: the configs' released files are
+    absent; where a config's BACKBONE.PRETRAINED asks for it, the ImageNet
+    ResNet34 phase 11 wrote), ``--submit_dump --postprocess_draw``: HO3D v2 on phase 11's
+    evaluation split (160 frames), HO3D v3 on an evaluation split of 128
+    frames and DexYCB on an s0 test split of 128 frames, both written
+    here beside phase 11's (``datasets/layouts.py``). Each dump has a row a frame, DexYCB's
+    is ``pred_dexycb.json`` with a finite AR, and each drawn overlay tile
+    launched B2 once. -> the launches of the four."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from artiboost_torch import submit_reload
+    from artiboost_torch.datasets import layouts
+    from artiboost_torch.utils.config import load_config
+
+    tmp = real["root"]
+    rng = np.random.RandomState(13)
+    layouts.write_ho3d(real["data"], "test", {"SM1": 64, "MPM10": 64}, REAL_OBJS, rng,
+                       version="v3", n_images=8)
+    layouts.write_dexycb(real["data"], 3, 5, 1, rng, test_frames=64)  # s0 test: 2 x 64 frames
+    total, lines = {}, []
+    try:
+        os.chdir(tmp)
+        for name in EVAL_CONFIGS:
+            cfg = load_config(os.path.join(REPO, "config_eval", f"{name}.yaml"))
+            for split in cfg["DATASET"].values():
+                split["DATA_ROOT"] = real["data"]
+            with open(f"{name}.yaml", "w") as f:
+                yaml.safe_dump(cfg, f)
+            draw_dir = os.path.join(tmp, f"draw_{name}")
+            zero_counts()
+            t0 = time.perf_counter()
+            out = submit_reload.main(["--cfg", f"{name}.yaml", "--exp_id", name, "--submit_dump",
+                                      "--postprocess_draw", "--postprocess_draw_path", draw_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            kind = cfg["DATASET"]["TEST"]["TYPE"].lower()
+            n = {"ho3d": real["n_test"], "ho3dv3": 128, "dexycb": 128}[kind]
+            check(out["pred_path"].endswith(f"pred_{kind}.json")
+                  and out["weights"] in ("random init", "ARCH.PRETRAINED"),
+                  f"phase 13b {name}: {out['pred_path']}, weights {out['weights']}")
+            with open(out["pred_path"]) as f:
+                xyz, verts = json.load(f)
+            check(len(xyz) == len(verts) == n and all(len(j) == 21 for j in xyz),
+                  f"phase 13b {name}: {len(xyz)} joint and {len(verts)} vert rows, {n} frames")
+            tiles = 16 * min(out["batches"], 4)
+            pngs = sorted(os.listdir(draw_dir))
+            check(len(pngs) == min(out["batches"], 4)
+                  and launches == {"raster_uv": 0, "raster_rgb": tiles, "raster_rgb_binned": 0},
+                  f"phase 13b {name}: overlays {pngs}, launches {launches}, expected {tiles} rgb")
+            m = out["measures"]
+            check(all(math.isfinite(v) for metric in m.values() for v in metric.values()),
+                  f"phase 13b {name}: measures {m}")
+            if kind == "dexycb":
+                ar = m["AR"]
+                check(all(0.0 <= v <= 1.0 for k, v in ar.items() if k.startswith("AR")),
+                      f"phase 13b {name}: AR {ar}")
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            lines.append(f"  {name} ({card}): {n} frames in {out['batches']} batches of 128 in "
+                         f"{wall:.2f} s, {os.path.basename(out['pred_path'])} of {len(xyz)} rows "
+                         f"and its zip, {len(pngs)} overlay grids; launches {launches}; "
+                         + (f"AR {m['AR']['AR_MSSD']:.4f} (MSSD)" if kind == "dexycb" else
+                            f"Mean3DEPE joints {m['Mean3DEPE']['joints_3d_abs_mepe']:.2f} mm"))
+    finally:
+        os.chdir(REPO)
+    print(f"phase 13b, submission of the four other evaluation configs ({card}), random init:",
+          flush=True)
+    for line in lines:
+        print(line, flush=True)
+    return total
+
 def main():
+    t_smoke = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1693,11 +2043,6 @@ def main():
         fail(f"{REPO} does not hold the artiboost_torch package")
     sys.path.insert(0, REPO)
     os.chdir(REPO)
-    import logging
-
-    from artiboost_torch.utils.misc import LOG_FORMAT
-
-    logging.basicConfig(level=logging.INFO, format=LOG_FORMAT, datefmt="%H:%M:%S")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1833,7 +2178,7 @@ def main():
     # ---- 4. the val-and-mining slice (no train pass), bf16 ----
     records4, restore = spy_refiners(loader_module)
     zero_counts()
-    timer4 = StageTimer(dev)
+    timer4 = StageTimer(dev, sync=True)  # per-stage ms: each stage waits for its device work
     t0 = time.perf_counter()
     try:
         loader = ArtiBoostLoader(cfg=slice_config(val_cfg), batch_size=128, n_epochs=2,
@@ -1893,7 +2238,7 @@ def main():
     init = {k: v.clone() for k, v in init.items()}
     records5, restore = spy_refiners(loader_module)
     zero_counts()
-    timer5 = StageTimer(dev)
+    timer5 = StageTimer(dev, sync=True)
     t0 = time.perf_counter()
     try:
         out = run(cfg, epochs=2, device="cuda", model_state=init, timer=timer5)
@@ -2012,6 +2357,7 @@ def main():
 
         # ---- 13. the submission entry point on phase 11's files and checkpoint ----
         launches13 = submission(card, real, hold, read_counts, zero_counts)
+        launches13b = other_eval_configs(card, real, read_counts, zero_counts)
     finally:
         shutil.rmtree(real_dir, ignore_errors=True)
 
@@ -2021,13 +2367,21 @@ def main():
     # ---- 15. the RefineNet and IKNet trainers ----
     trainers(card)
 
+    # ---- 16. the pipelined train step against the unpipelined order ----
+    launches16 = pipelined_order(card, read_counts, zero_counts)
+
+    # ---- 17. the mining experiment scripts, short ----
+    launches17 = mining_scripts(card, read_counts, zero_counts)
+
     rows = []
     per_rank14 = [launches14["two_rank_0"], launches14["two_rank_1"]]
     main_path = {"8": launches8, "9": launches9, "10": launches10, "11": launches11,
                  "12": launches12,
-                 "14": {k: sum(c[k] for c in per_rank14) for k in per_rank14[0]}}
+                 "14": {k: sum(c[k] for c in per_rank14) for k in per_rank14[0]},
+                 "16": launches16, "17": launches17}
     for name, src_line, phases in (("raster_uv", 222, main_path),
-                                   ("raster_rgb", 201, dict(main_path, **{"13": launches13})),
+                                   ("raster_rgb", 201, dict(main_path, **{
+                                       "13": launches13, "13b": launches13b})),
                                    ("raster_rgb_binned", 272, {"6": launches6})):
         k = kernels[name]
         by_phase = {p: counts[name] for p, counts in phases.items()}
@@ -2038,6 +2392,8 @@ def main():
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})
+    print(f"chip_smoke: phases 1-17 passed in {time.perf_counter() - t_smoke:.1f} s "
+          f"({card})", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2070,6 +2426,8 @@ def dp_cards_main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
         dp_worker(json.loads(sys.argv[2]))
+    elif len(sys.argv) == 3 and sys.argv[1] == "--order-worker":
+        order_worker(json.loads(sys.argv[2]))
     elif sys.argv[1:] == ["--dp-cards"]:
         dp_cards_main()
     else:

@@ -208,10 +208,9 @@ def test_build_evaluator_passes_data_preset_and_skips_unknown(caplog):
     finally:
         del t_eval.METRICS["Probe"]
     assert seen["DATA_PRESET"] == PRESET and seen["X"] == 1
-    with caplog.at_level("WARNING", logger="artiboost_torch"):
-        ev = t_eval.build_evaluator([{"TYPE": "NoSuchMetric"}], device="cpu")
-    assert ev.metrics_list == []
-    assert any("NoSuchMetric" in r.message for r in caplog.records)
+    # an unknown TYPE raises as JAX's registry does (it used to be skipped)
+    with pytest.raises(KeyError, match="NoSuchMetric is not in the metric registry"):
+        t_eval.build_evaluator([{"TYPE": "NoSuchMetric"}], device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -221,8 +221,9 @@ def test_scheduler_against_optax(kind):
 
 @pytest.mark.parametrize("kind", ["dataset", "loss"])
 def test_unported_type_raises_with_its_name(kind, tmp_path):
-    """A DATASET.TRAIN or CRITERION type that is not ported raises with its
-    name; the train pass does not skip it. (A real-data type whose data is
+    """A DATASET.TRAIN or CRITERION type that no registry knows raises
+    ``KeyError`` with its name and the registry's, as JAX's
+    ``build_from_cfg`` does; the train pass does not skip it. (A real-data type whose data is
     absent raises FileNotFoundError instead, as the JAX package's does:
     tests/test_torch_entry.py.) Every dataset and loss of the JAX package is
     ported, so both cases name a type that neither package knows; the
@@ -231,7 +232,8 @@ def test_unported_type_raises_with_its_name(kind, tmp_path):
     from artiboost_torch.datasets.synthetic import build_dataset
 
     (tmp_path / "HO3D" / "train").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="'NoSuchDataset'|'NoSuchLoss'"):
+    with pytest.raises(KeyError, match="NoSuchDataset is not in the dataset registry|"
+                                       "NoSuchLoss is not in the loss registry"):
         if kind == "dataset":
             build_dataset({"TYPE": "NoSuchDataset", "DATA_SPLIT": "train",
                            "DATA_ROOT": str(tmp_path)}, {}, device="cpu")

@@ -45,22 +45,47 @@ def flat_to_ovg(flat_id: torch.Tensor, n_persp: int, n_grasp: int):
     return obj_id, torch.div(rem, n_grasp, rounding_mode="floor"), rem % n_grasp
 
 
+# resolution of the fixed-point weights of the draw with replacement: a
+# weight becomes floor(w / max(w) * 2^FIXED_POINT_BITS), fewer bits where
+# the cells' sum would pass 2^62
+FIXED_POINT_BITS = 40
+
+
+def fixed_point_weights(w: torch.Tensor) -> torch.Tensor:
+    """(N,) float weights >= 0 -> (N,) int64 floor(w / max(w) * 2^bits).
+    The max is exact in any order, and float64's division and the power of
+    two are correctly rounded on every device, so the integers depend only
+    on the weights' bits. A weight of 0, or one below 2^-bits of the
+    largest, becomes 0."""
+    bits = min(FIXED_POINT_BITS, 62 - max(int(w.numel()), 1).bit_length())
+    w = w.double()
+    return torch.floor(w / w.max() * 2.0 ** bits).to(torch.int64)
+
+
 def sample_triplets_draws(space: CCVSpace, generator: torch.Generator, n_samples: int,
                           replace: bool = True) -> torch.Tensor:
     """Random half of the triplet draw -> flat ids (n_samples,).
 
-    With replacement: Categorical(effective weights) (ovg_set.py:113).
-    Without: Gumbel top-k over log-weights, the exact equivalent of
-    sequential sampling without replacement; ids come in draw order.
-    On CUDA ``torch.multinomial`` is not the same bits run to run: from
-    equal weights and generator states, ranks on separate cards drew other
-    triplets (ROADMAP C.2); under a process group the loader's
-    ``DrawSource`` hands every rank rank 0's draw."""
+    With replacement: Categorical(effective weights) (ovg_set.py:113), by
+    the inverse CDF over ``fixed_point_weights``: their prefix sums are
+    int64, exact and so the same bits in any order of the scan; ``n_samples``
+    float64 uniforms from ``generator``, scaled to [0, total), are looked
+    up in them (``searchsorted``). So the ids depend only on the weights'
+    bits and the generator's state, in any process and on any card, and
+    one algorithm runs on the CPU and the card. A cell of weight 0
+    (blacklisted, or below the fixed point's resolution) is never drawn;
+    at least one weight must be positive. JAX draws by a threefry Gumbel-max
+    (``jax.random.categorical``): the same distribution, not its bits.
+    Without replacement: Gumbel top-k over log-weights, the exact
+    equivalent of sequential sampling without replacement; ids come in
+    draw order."""
     w = space.effective_weights().reshape(-1)
-    logw = torch.log(torch.clamp_min(w, 1e-20))
     if replace:
-        return torch.multinomial(torch.exp(logw - logw.max()), n_samples,
-                                 replacement=True, generator=generator)
+        cdf = torch.cumsum(fixed_point_weights(w), 0)
+        u = torch.rand(n_samples, generator=generator, device=w.device, dtype=torch.float64)
+        r = torch.minimum(torch.floor(u * cdf[-1].double()).to(torch.int64), cdf[-1] - 1)
+        return torch.searchsorted(cdf, r, right=True)
+    logw = torch.log(torch.clamp_min(w, 1e-20))
     u = torch.rand(logw.shape, generator=generator, device=logw.device)
     u = torch.clamp(u, torch.finfo(u.dtype).tiny, 1.0)
     g = -torch.log(-torch.log(u))

@@ -106,6 +106,11 @@ def cached_blacklist(cache_path: str, build: Callable[[], torch.Tensor], device
     return blacklist
 
 
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes (read to the host)."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
 def write_npy(path: str, array: np.ndarray) -> None:
     """``np.save`` to a file of this writer's own in ``path``'s directory,
     renamed onto ``path`` once whole."""
@@ -122,15 +127,21 @@ class DrawSource:
 
     def __init__(self, generator: torch.Generator, device):
         self.generator, self.device = generator, device
+        self.own_digests: List[str] = []
 
     def triplets(self, space: CCVSpace, n: int, replace: bool) -> torch.Tensor:
-        """The CCV draw; under a process group rank 0's, on every rank, as
-        JAX's one SPMD program makes one draw: each rank draws from the same
-        generator state (so the states stay equal), but the weighted draw is
-        not the same bits run to run on CUDA, and ranks on separate cards
-        drew other triplets (ROADMAP C.2)."""
+        """The CCV draw. From equal weights and generator states it is the
+        same bits in every process (``sample_triplets_draws``). Under a
+        process group every rank still takes rank 0's ids, as JAX's one SPMD
+        program makes one draw (each rank draws, so the generators stay
+        equal), and ``own_digests`` keeps the digest of this rank's own ids
+        from before the broadcast, so a check can hold every rank's own draw
+        to rank 0's."""
         flat = sample_triplets_draws(space, self.generator, n, replace=replace)
-        return mesh.broadcast_(flat) if mesh.world() > 1 else flat
+        if mesh.world() == 1:
+            return flat
+        self.own_digests.append(digest(flat))
+        return mesh.broadcast_(flat)
 
     def poses(self, pose_generator, B: int) -> Dict:
         return pose_generator.draws(self.generator, B, self.device)

@@ -135,12 +135,18 @@ def rasterize_batch(verts_screen: torch.Tensor, vert_attrs: torch.Tensor, faces:
 
 
 def vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
-    """(B, V, 3), (B, F, 3) -> (B, V, 3) area-weighted normals (scatter-add)."""
+    """(B, V, 3), (B, F, 3) -> (B, V, 3) area-weighted normals. Each face's
+    normal is added to its three corners by one ``index_put_`` with
+    ``accumulate``, corner 0 of every face first: on a card that sorts the
+    indices and sums each vertex's terms in that order, the same bits run
+    to run, where ``scatter_add_``'s atomic adds are not."""
+    B, F = faces.shape[:2]
     v = _gather_faces(verts, faces.long())
     fn = torch.linalg.cross(v[:, :, 1] - v[:, :, 0], v[:, :, 2] - v[:, :, 0], dim=-1)
-    vn = torch.zeros_like(verts)
-    for k in range(3):
-        vn.scatter_add_(1, faces[..., k].long()[..., None].expand_as(fn), fn)
+    rows = torch.arange(B, device=verts.device)[:, None].expand(B, 3 * F)
+    corners = faces.long().transpose(1, 2).reshape(B, 3 * F)
+    vn = torch.zeros_like(verts).index_put_((rows, corners), fn.repeat(1, 3, 1),
+                                            accumulate=True)
     return vn / torch.clamp_min(torch.linalg.norm(vn, dim=-1, keepdim=True), 1e-8)
 
 

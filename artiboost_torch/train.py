@@ -324,6 +324,10 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
     batch_size = int(cfg["TRAIN"]["BATCH_SIZE"])
     n_epochs = int(cfg["TRAIN"]["EPOCH"]) if epochs is None else int(epochs)
     seed = int(cfg["TRAIN"].get("MANUAL_SEED", 1))
+    # torch's own generators follow the seed too: the run draws from its
+    # loader's generator, but a checkpoint stores these states, and torch
+    # seeds its CPU generator differently in every process
+    torch.manual_seed(seed)
     # PIPELINE_SYNTH (default on, JAX train_artiboost.py:321-326): render
     # each step's synth half one step ahead of its train step
     pipeline = bool(cfg["TRAIN"].get("PIPELINE_SYNTH", True))

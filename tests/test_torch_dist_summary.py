@@ -11,7 +11,8 @@ its own figure is about half the global one).
 And the CCV draw under a process group (ROADMAP C.2): each rank's
 ``DrawSource.triplets`` returns rank 0's draw, though each rank's sampler
 drew its own (here made to differ, as ``torch.multinomial`` on CUDA did
-on separate cards), and the generators stay equal.
+on separate cards), the generators stay equal, and ``own_digests`` keeps
+each rank's own draw from before the broadcast (so a parting shows).
 
 The ranks are this file run as a script:
 
@@ -31,6 +32,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from artiboost_torch import train  # noqa: E402
+from artiboost_torch.artiboost.loader import digest  # noqa: E402
 from artiboost_torch.parallel import mesh  # noqa: E402
 from artiboost_torch.utils.summarizer import NullSummarizer  # noqa: E402
 
@@ -90,7 +92,8 @@ def draws_worker():
         flat = [source.triplets(None, 6, replace) for replace in (True, False)]
     finally:
         mesh.close()
-    torch.save({"flat": flat, "state": source.generator.get_state()}, out_path)
+    torch.save({"flat": flat, "state": source.generator.get_state(),
+                "own": source.own_digests}, out_path)
 
 
 def _spawn(args_of_rank, timeout=RANK_TIMEOUT_S):
@@ -118,6 +121,10 @@ def test_ranks_take_rank_0s_draw(tmp_path):
     for a, b in zip(got[0]["flat"], got[1]["flat"]):
         assert torch.equal(a, b) and int(a.max()) < 1000  # rank 0's ids on both ranks
     assert torch.equal(got[0]["state"], got[1]["state"])
+    # each rank's own draws, before the broadcast: rank 0's are what both
+    # returned, rank 1's (ids + 1000) differ
+    assert got[0]["own"] == [digest(f) for f in got[0]["flat"]]
+    assert len(got[1]["own"]) == 2 and all(a != b for a, b in zip(got[0]["own"], got[1]["own"]))
 
 
 @pytest.fixture(scope="module")

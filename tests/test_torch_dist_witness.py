@@ -15,6 +15,13 @@ with variants among:
   14's bounds, and whether the ranks stayed bit-equal. About 4 minutes on
   one card. ``faults_f32``: the same in float32 (phase 14 holds the
   gradients of its float32 run).
+- ``seeds``: phase 14's recipe, 2 ranks against 1 process, at each
+  TRAIN.MANUAL_SEED of SEEDS (1 is the released recipe's and the smoke's),
+  each on the port's triplet draw and on ``torch.multinomial`` (the draw
+  until ``ccv.sample_triplets_draws`` became an inverse CDF, planted as
+  ``multinomial``): each run's first-step and last-step losses apart, then
+  each sampler's readings in order. Four launches at a time on the card,
+  about 15 minutes.
 - ``blacklist``: the released recipe's CCV blacklist built 10 times on
   every visible card in one process and on the CPU in float64 (the map
   ``tests/test_torch_dist.py`` holds the CPU build to); prints whether all
@@ -41,6 +48,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))  # chip_smoke and artiboost_torch, run as a script
 FAULTS = ("none", "bn_local", "bn_backward_local", "grad_sum")
+SEEDS = range(1, 9)
+SAMPLERS = {"inverse_cdf": "none", "multinomial": "multinomial"}  # -> the plant
 RACE_WRITES = 300
 
 
@@ -99,6 +108,20 @@ def _plant(fault: str) -> None:
                 layers.mesh = mesh
 
         layers._GlobalBatchNorm.backward = staticmethod(local_backward)
+    elif fault == "multinomial":
+        from artiboost_torch.artiboost import loader
+
+        draws = loader.sample_triplets_draws
+
+        def multinomial(space, generator, n, replace=True):
+            if not replace:
+                return draws(space, generator, n, replace)
+            w = space.effective_weights().reshape(-1)
+            logw = torch.log(torch.clamp_min(w, 1e-20))
+            return torch.multinomial(torch.exp(logw - logw.max()), n, replacement=True,
+                                     generator=generator)
+
+        loader.sample_triplets_draws = multinomial
     elif fault == "grad_sum":
         mean = mesh.all_reduce_grads
 
@@ -143,6 +166,53 @@ def faults(card: str, dtype: str = "bfloat16") -> None:
                   flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def seeds(card: str) -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke
+    import yaml
+
+    from artiboost_torch.ops.rasterizer_cuda import raster_uv
+
+    raster_uv.build()  # once, before the launches start together
+    tmp = tempfile.mkdtemp(prefix="dist_witness_seeds_")
+    worker = [sys.executable, os.path.abspath(__file__), "--worker"]
+
+    def launch(job):
+        sampler, seed, world = job
+        d = os.path.join(tmp, f"{sampler}_{seed}_{world}")
+        os.makedirs(d)
+        cfg_path = chip_smoke._dp_config(d)
+        with open(cfg_path) as f:
+            cfg = yaml.safe_load(f)
+        cfg["TRAIN"]["MANUAL_SEED"] = seed
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return chip_smoke._dp_launch(world, d, "run", cfg=cfg_path,
+                                     worker=worker + [SAMPLERS[sampler]])
+
+    jobs = [(sampler, seed, world) for sampler in SAMPLERS for seed in SEEDS for world in (2, 1)]
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            records = dict(zip(jobs, pool.map(launch, jobs)))
+        readings = {}
+        for sampler in SAMPLERS:
+            for seed in SEEDS:
+                got = chip_smoke.dp_readings(records[sampler, seed, 2], records[sampler, seed, 1])
+                readings[sampler, seed] = got
+                print(f"seed {seed}, {sampler} ({card}): steps apart {got['steps']}; first "
+                      f"{got['first']!r}, last {got['last']!r}; parameter gap {got['gap']!r}; "
+                      f"same start {got['same_start']}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for sampler in SAMPLERS:
+        for k in ("first", "last"):
+            xs = sorted(readings[sampler, seed][k] for seed in SEEDS)
+            print(f"{sampler}, {k} step over seeds {SEEDS.start}-{SEEDS.stop - 1} ({card}): "
+                  f"{', '.join(f'{x:.3e}' for x in xs)}; median {xs[len(xs) // 2]:.3e}, largest "
+                  f"{xs[-1]:.3e} (phase 14's bound {chip_smoke.DP_LOSS_RTOL[k]})", flush=True)
 
 
 def blacklist(card: str) -> None:
@@ -225,7 +295,8 @@ def main(names) -> None:
         smi = ""
     card = ", ".join(sorted(set(smi.strip().splitlines()))) or "no card"
     for name in names:
-        {"faults": faults, "faults_f32": lambda c: faults(c, "float32"), "blacklist": blacklist,
+        {"faults": faults, "faults_f32": lambda c: faults(c, "float32"), "seeds": seeds,
+         "blacklist": blacklist,
          "cache_race": cache_race}[name](card)
 
 

@@ -28,19 +28,43 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(d), self.weight.to(d), bias)
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
-    """flax ``nn.ConvTranspose(dtype=compute_dtype)`` (stride 2, kernel 4,
-    "SAME"), with the casts of ``Conv2d``."""
+def same_transpose_pads(k: int, s: int = 2):
+    """``lax.conv_transpose``'s "SAME" padding of the stride-dilated input:
+    (leading, trailing) rows, ``k + s - 2`` in all; an odd kernel puts the
+    extra row on the leading side."""
+    pad_len = k + s - 2
+    pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+    return pad_a, pad_len - pad_a
 
-    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kw):
-        super().__init__(*args, **kw)
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(dtype=compute_dtype)`` (stride 2, any kernel,
+    "SAME"), with the casts of ``Conv2d``: the output is exactly twice the
+    input per side, aligned as flax aligns it. Torch's ``padding=p`` keeps
+    rows ``[p, 2n - 2 + k - p)`` of the ``padding=0`` output and flax keeps
+    ``[k - 1 - pad_a, k - 1 - pad_a + 2n)``, so ``p = k - 1 - pad_a``; the
+    rest is one ``output_padding`` row (k = 1) or one row cropped from the
+    end (odd k >= 3). Torch's usual ``padding=1, output_padding=1`` for
+    k = 3 would be a one-pixel shift."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *,
+                 bias: bool = False, compute_dtype: torch.dtype = torch.float32):
+        pad_a, _ = same_transpose_pads(kernel_size)
+        p = kernel_size - 1 - pad_a
+        extra = 2 - kernel_size + 2 * p  # 2n less the padding=p output's length
+        super().__init__(in_channels, out_channels, kernel_size, 2, p,
+                         output_padding=max(extra, 0), bias=bias)
+        self.crop = max(-extra, 0)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(d)
-        return F.conv_transpose2d(x.to(d), self.weight.to(d), bias, self.stride, self.padding,
-                                  self.output_padding, self.groups, self.dilation)
+        y = F.conv_transpose2d(x.to(d), self.weight.to(d), bias, self.stride, self.padding,
+                               self.output_padding, self.groups, self.dilation)
+        if self.crop:
+            y = y[..., :y.shape[-2] - self.crop, :y.shape[-1] - self.crop]
+        return y
 
 
 class Linear(nn.Linear):

@@ -32,7 +32,9 @@ def conv_weight(k: np.ndarray) -> torch.Tensor:
 def deconv_weight(k: np.ndarray) -> torch.Tensor:
     """flax ConvTranspose HWIO (spatially flipped) -> torch (in, out, kH, kW)."""
     k = np.asarray(k)[::-1, ::-1]
-    return torch.from_numpy(np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))))
+    # a copy, not ascontiguousarray: for a 1 x 1 kernel that keeps the
+    # flip's negative strides, which torch.from_numpy refuses
+    return torch.from_numpy(np.transpose(k, (2, 3, 0, 1)).copy())
 
 
 def _bn(sd: Dict, prefix: str, p: Dict, s: Dict):

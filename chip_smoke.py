@@ -177,14 +177,23 @@ Phases, each fatal on failure:
      first, and 16 seeded triplet draw pairs at the released recipe's
      lengths the same bits; then the draw's ms at those lengths against
      ``torch.multinomial``'s, and ``vertex_normals`` bit-equal over 10 runs.
+ 19. the integral head's options: ``artiboost_torch.train.main`` on the
+     released Clas recipe at full width with HYBRID_HEAD NORM_TYPE sigmoid
+     and NUM_DECONV_KERNELS [3, 3] (28 x 28 heatmaps), synth-only (4 steps
+     of 128, VAL_LEN 128, 1 epoch): finite losses, every head parameter
+     moved, B1 launched once a synth batch and bit-equal to its twin on the
+     first, the weight map changed inside [0.1, 10]; then heads with
+     divide_sum and [2, 2], softmax and [3, 3] at that width, in float32 and
+     bfloat16, on the card against the CPU forward of the same weights
+     (``HEAD_GAP``); the phase's seconds and train img/s.
 Every launch counter is zeroed just before phases 4 to 11 and 13, each
-run of phases 12, 13b and 16, phase 17 and, in its own process, each run
-of phases 14 and 18, and read just after each. TF32 is off. The lines
-before the last: the smoke's seconds, the kernel table as one JSON object
-(B1 launches from phases 8 to 12, 14, 16 (its pipelined run), 17 and 18
-(its four processes), the two ranks' of phase 14 also apart, B2 from 8 to
-13b and 17, summed and by phase, B3 launches from phase 6) and the card's
-name and power limit; the last line: the ok JSON.
+run of phases 12, 13b and 16, phases 17 and 19 and, in its own process,
+each run of phases 14 and 18, and read just after each. TF32 is off. The
+lines before the last: the smoke's seconds, the kernel table as one JSON
+object (B1 launches from phases 8 to 12, 14, 16 (its pipelined run), 17,
+18 (its four processes) and 19, the two ranks' of phase 14 also apart, B2
+from 8 to 13b and 17, summed and by phase, B3 launches from phase 6) and
+the card's name and power limit; the last line: the ok JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
        (``python3 chip_smoke.py --dp-worker <json>`` is phase 14's own process,
@@ -2358,6 +2367,197 @@ def other_eval_configs(card: str, real: dict, read_counts, zero_counts) -> dict:
         print(line, flush=True)
     return total
 
+# phase 19 (``head_forwards``): heads at the released recipe's width with the
+# options the recipe does not use, on the card against the port's CPU forward
+# of the same weights and input, in float32 and in the recipe's bfloat16. A
+# gap is the largest |card - CPU| of an output over its largest |CPU| value:
+# the logits (the final conv's output) and softmax's kp3d and kp3d_confd are
+# held within HEAD_GAP[dtype]. divide_sum divides by each class's sum of
+# signed logits S, which amplifies the logits' rounding: to first order a
+# coordinate or confidence y moves by at most sum|d| (1 + |y|) / |S| for a
+# logit gap d, so its outputs are held within twice that, plus
+# HEAD_GAP["float32"] of the largest |y| for its float32 tail. Measured on
+# an H100 80GB HBM3 at 700 W (PERF.md §6): logits 7.7e-7 and 9.6e-7 in
+# float32, 6.3e-3 and 5.7e-3 in bfloat16; softmax's outputs 3.7e-7 in
+# float32, 9.6e-4 in bfloat16; divide_sum's at 0.025 and 0.028 of their
+# bound (its kp3d 0.14 of the largest in bfloat16: a class's sum|x| / |S|
+# reaches 3e4 at a random init).
+HEAD_FORWARDS = (("divide_sum", (2, 2)), ("softmax", (3, 3)))
+HEAD_GAP = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def head_forwards(card: str) -> list:
+    """Phase 19's forward checks: for each (NORM_TYPE, NUM_DECONV_KERNELS)
+    of HEAD_FORWARDS and each dtype, the released recipe's HYBRID_HEAD with
+    those options built from seed 19 over its DATA_PRESET (HEATMAP_SIZE 28 x
+    28), in eval mode, on one fixed batch of 16 ResNet34 features (512 x 7 x
+    7, uniform in [0, 1) from seed 19): the card's logits, kp3d and
+    kp3d_confd against the CPU's as HEAD_GAP says. Every line is printed
+    before the first check. -> the printed lines."""
+    import torch
+
+    from artiboost_torch.models.integral_head import build_integral_deconv_head
+    from artiboost_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
+    feat = torch.rand(16, 512, 7, 7, generator=torch.Generator().manual_seed(19))
+
+    def forward(head, x):
+        out = head(x)
+        out["logits"] = head.final_layer(head.deconv_layers(x.to(head.dtype))).float()
+        return {k: v.cpu() for k, v in out.items()}
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    lines, failed = [], []
+    for norm, kernels in HEAD_FORWARDS:
+        for dtype in ("float32", "bfloat16"):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(19)
+                head = build_integral_deconv_head(**{
+                    **cfg["DATA_PRESET"], **cfg["ARCH"]["HYBRID_HEAD"], "NORM_TYPE": norm,
+                    "NUM_DECONV_KERNELS": list(kernels), "DTYPE": dtype}).eval()
+            with torch.no_grad():
+                ref = forward(head, feat)
+                out = forward(head.cuda(), feat.cuda())
+            bound = HEAD_GAP[dtype]
+            gaps = {k: gap(out[k], ref[k]) for k in ("logits", "kp3d", "kp3d_confd")}
+            ok = ref["kp3d"].shape == (16, 22, 3) and all(
+                bool(torch.isfinite(v).all()) for v in list(ref.values()) + list(out.values()))
+            ok &= gaps["logits"] <= bound
+            label = f"{norm} deconv {kernels} {dtype}"
+            if norm == "divide_sum":
+                x = ref["logits"].reshape(16, 22, -1)
+                s = x.sum(-1).abs()
+                amp = (out["logits"].reshape(16, 22, -1) - x).abs().sum(-1) / s
+                worst = 0.0
+                for k, a in (("kp3d", amp[..., None]), ("kp3d_confd", amp)):
+                    allowed = (2 * a * (1 + ref[k].abs())
+                               + HEAD_GAP["float32"] * ref[k].abs().max())
+                    worst = max(worst, float(((out[k] - ref[k]).abs() / allowed).max()))
+                ok &= worst <= 1.0
+                detail = (f"outputs at {worst:.3f} of their first-order bound (sum|x| / |S| "
+                          f"up to {float((x.abs().sum(-1) / s).max()):.1f})")
+            else:
+                ok &= max(gaps["kp3d"], gaps["kp3d_confd"]) <= bound
+                detail = f"bound {bound:g}"
+            lines.append(f"phase 19 head forward, {label} ({card}): card against CPU, gap "
+                         f"logits {gaps['logits']:.3e}, kp3d {gaps['kp3d']:.3e}, kp3d_confd "
+                         f"{gaps['kp3d_confd']:.3e}; {detail}")
+            print(lines[-1], flush=True)
+            if not ok:
+                failed.append(label)
+            del head
+    check(not failed, f"phase 19: the card's head forward departs from the CPU's: {failed}")
+    return lines
+
+
+def head_options(card: str, hold, read_counts, zero_counts) -> dict:
+    """Phase 19: ``artiboost_torch.train.main`` on the released Clas recipe at
+    full width (ResNet34 in bfloat16, 224x224, batch 128, NCLASSES 22,
+    DEPTH_RESOLUTION 28, 2 x 256 filters, 28 x 28 heatmaps) with HYBRID_HEAD
+    NORM_TYPE sigmoid and NUM_DECONV_KERNELS [3, 3], synth-only
+    (CONFIG_LEN_TRAIN 512: 4 steps of 128, VAL_LEN 128, EVAL_FREQ 1, 1 epoch,
+    no TEST pass); the init built as ``other_recipe`` builds it. Checks the
+    head's options in force, finite losses, every head parameter moved, B1
+    launched once a synth batch and held against its twin on the first, the
+    weight map changed inside [0.1, 10]; then ``head_forwards``. Everything
+    it writes is removed. -> the launches of the run."""
+    import torch
+    import yaml
+
+    from artiboost_torch import train
+    from artiboost_torch.artiboost import renderer
+    from artiboost_torch.models.arch import build_arch
+    from artiboost_torch.ops.rasterizer_cuda import prepare_raster, raster_uv
+    from artiboost_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "config", "ho3dv2_clasbased_artiboost.yaml"))
+    cfg["ARCH"]["HYBRID_HEAD"].update(NORM_TYPE="sigmoid", NUM_DECONV_KERNELS=[3, 3])
+    cfg["MANAGER"].update(CONFIG_LEN_TRAIN=512, VAL_LEN=128)
+    cfg["TRAIN"].update(EVAL_FREQ=1, VAL_START_EPOCH=0)
+    with torch.random.fork_rng(devices=[]):  # the initialisation run() makes
+        torch.manual_seed(int(cfg["TRAIN"]["MANUAL_SEED"]))
+        init = build_arch(cfg["ARCH"], cfg["DATA_PRESET"]).model_list[0].state_dict()
+    init = {k: v.clone() for k, v in init.items()}
+    rec, orig = {}, renderer.rasterize_batch_uv
+
+    def raster(*args, **kw):
+        rec.setdefault("raster", (args, kw))
+        return orig(*args, **kw)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_head_")
+    dump = None
+    renderer.rasterize_batch_uv = raster
+    try:
+        cfg_path = os.path.join(tmp, "head.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = train.main(["--cfg", cfg_path, "--exp_id", "smoke19", "--epochs", "1",
+                          "--test_freq", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        dump = out["dump_path"]
+        hist, loader = out["history"], out["loader"]
+        head = out["model"].model_list[0].hybrid_head
+        check(out["train_data"] is None and loader._mixed_counts() == (0, 128)
+              and len(loader) == 4, "phase 19 did not train synth-only, 4 steps of 128")
+        check((head.norm_type, head.heatmap_size, head.dtype) == ("sigmoid", (28, 28),
+                                                                  torch.bfloat16)
+              and all(head.deconv_layers[3 * i].kernel_size == (3, 3) for i in range(2)),
+              f"phase 19: head options not in force: {head.norm_type}, {head.heatmap_size}, "
+              f"{head.dtype}, {[head.deconv_layers[3 * i].kernel_size for i in range(2)]}")
+        steps = hist[0]["train"]["steps"]
+        val_batches = hist[0].get("val", {}).get("batches", 0)
+        check(steps == 4 and val_batches == 1,
+              f"phase 19: {steps} train steps, {val_batches} val batches")
+        want = {"raster_uv": steps + val_batches, "raster_rgb": 0, "raster_rgb_binned": 0}
+        check(launches == want, f"phase 19 launches {launches}, expected {want}")
+        losses = hist[0]["train"]["final_loss"]
+        lm = hist[0]["val"]["measures"]["LossesMetric"]
+        check(all(math.isfinite(v) for v in losses) and math.isfinite(lm["final_loss"]),
+              f"phase 19: train losses {losses}, val losses {lm}")
+        final = out["model"].model_list[0].state_dict()
+        names = [n for n, _ in out["model"].model_list[0].named_parameters()
+                 if n.startswith("hybrid_head.")]
+        still = [n for n in names if torch.equal(final[n].cpu(), init[n])]
+        check(len(names) == 8 and not still, f"phase 19: head unchanged after training: {still}")
+        w = loader.ccv.sample_weight_map
+        check(not bool(torch.all(w == 1.0)) and float(w.min()) >= 0.1 and float(w.max()) <= 10.0,
+              f"phase 19: weight map [{float(w.min())}, {float(w.max())}]")
+        rate = hist[0]["train"]["images"] / hist[0]["train"]["seconds"]
+        timer = out["timer"]
+        del out, loader, head, final
+    finally:
+        renderer.rasterize_batch_uv = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dump:
+            shutil.rmtree(dump, ignore_errors=True)
+    args, kw = rec.pop("raster")
+    inp = prepare_raster(*args, **kw)
+    hold(raster_uv, inp, f"phase 19 first synth batch (B={inp.geom.shape[0]} at "
+                         f"{inp.height}x{inp.width})")
+    del inp, args, kw
+    print(f"phase 19, released Clas recipe with HYBRID_HEAD NORM_TYPE sigmoid, deconv kernels "
+          f"[3, 3] ({card}): synth-only, 1 epoch in {wall:.2f} s: {steps} steps of 128, "
+          f"{val_batches} val batch; launches {launches}; final_loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; val final_loss {lm['final_loss']:.6f}; the head's {len(names)} "
+          f"parameters moved; weights [{float(w.min()):.4f}, {float(w.max()):.4f}]", flush=True)
+    for stage in ("pose sweep", "synth batch", "train step", "forward"):
+        n = max(timer.calls[stage], 1)
+        print(f"  stage {stage}: {timer.seconds[stage] * 1e3:.3f} ms per call over "
+              f"{timer.calls[stage]} calls")
+    head_forwards(card)
+    print(f"phase 19 ({card}): {time.perf_counter() - t_phase:.2f} s; train {rate:.2f} img/s "
+          "in epoch 0 (its first steps included)", flush=True)
+    return launches
+
+
 def main():
     t_smoke = time.perf_counter()
     try:
@@ -2703,12 +2903,15 @@ def main():
     # ---- 18. the same seed, the same run: fresh processes, default and strict ----
     launches18 = reproducibility(card, kernels)
 
+    # ---- 19. the integral head's options through the released Clas recipe ----
+    launches19 = head_options(card, hold, read_counts, zero_counts)
+
     rows = []
     per_rank14 = [launches14["two_rank_0"], launches14["two_rank_1"]]
     main_path = {"8": launches8, "9": launches9, "10": launches10, "11": launches11,
                  "12": launches12,
                  "14": {k: sum(c[k] for c in per_rank14) for k in per_rank14[0]},
-                 "16": launches16, "17": launches17, "18": launches18}
+                 "16": launches16, "17": launches17, "18": launches18, "19": launches19}
     for name, src_line, phases in (("raster_uv", 222, main_path),
                                    ("raster_rgb", 201, dict(main_path, **{
                                        "13": launches13, "13b": launches13b})),
@@ -2722,7 +2925,7 @@ def main():
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})
-    print(f"chip_smoke: phases 1-18 passed in {time.perf_counter() - t_smoke:.1f} s "
+    print(f"chip_smoke: phases 1-19 passed in {time.perf_counter() - t_smoke:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)

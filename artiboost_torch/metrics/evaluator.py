@@ -105,11 +105,12 @@ class Evaluator:
 
 
 def build_evaluator(metric_cfg_list: List[Dict], data_preset: Optional[Dict] = None,
-                    device=None) -> Evaluator:
+                    device=None, **extra_defaults) -> Evaluator:
     """One metric per config entry through the METRIC registry, each given
-    ``DATA_PRESET`` when there is one (``evaluator.py:92-97``) and the
-    ``device``; an unknown TYPE raises ``KeyError``."""
-    defaults = {"device": resolve_device(device)}
+    ``DATA_PRESET`` when there is one (``evaluator.py:92-97``), the
+    ``device`` and ``extra_defaults`` (the submission's ``ARG``, the
+    command line); an unknown TYPE raises ``KeyError``."""
+    defaults = dict(extra_defaults, device=resolve_device(device))
     if data_preset is not None:
         defaults["DATA_PRESET"] = data_preset
     return Evaluator([build_from_cfg(c, METRIC, defaults) for c in metric_cfg_list])

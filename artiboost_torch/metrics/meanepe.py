@@ -3,7 +3,9 @@
 (sum, count) pairs accumulated on the device per VAL_KEY. A key ending
 in ``_abs`` is held against the root-relative target plus the root; the
 union-batch validity of both masks the sample, as does SAMPLE_VALID, and
-the unseen-object filter drops corner samples of the listed objects."""
+the unseen-object filter drops corner samples of the listed objects: those
+of ``ARG.filter_unseen_obj_idxs`` where the submission passes its command
+line, else the config's FILTER_UNSEEN_OBJ_IDXS (``meanepe.py:47-52``)."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -21,10 +23,12 @@ from artiboost_torch.utils.registry import METRIC
 @METRIC.register_module
 class Mean3DEPE:
     def __init__(self, VAL_KEYS: List[str], MILLIMETERS: bool = False,
-                 FILTER_UNSEEN_OBJ_IDXS: List[int] = (), device=None, **_) -> None:
+                 FILTER_UNSEEN_OBJ_IDXS: List[int] = (), ARG=None, device=None, **_) -> None:
         self.val_keys_list = list(VAL_KEYS)
         self.to_millimeters = bool(MILLIMETERS)
-        self.filter_unseen_obj_idxs = [int(i) for i in FILTER_UNSEEN_OBJ_IDXS or []]
+        idxs = (getattr(ARG, "filter_unseen_obj_idxs", []) if ARG is not None
+                else FILTER_UNSEEN_OBJ_IDXS)
+        self.filter_unseen_obj_idxs = [int(i) for i in idxs or []]
         self.device = resolve_device(device)
         self.reset()
 

@@ -20,7 +20,7 @@ import inspect
 import json
 import os
 import socket
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -88,6 +88,40 @@ def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[
     logger.info(f"process group: rank {rank} of {world}, backend {backend} "
                 f"({local_world} ranks on this host, {n_cards} cards)")
     return True
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(rank: int, entry: Callable, argv: List[str], world: int, port: int,
+                  results) -> None:
+    out = entry(list(argv) + ["--multihost", "--coordinator", f"localhost:{port}",
+                              "--num_processes", str(world), "--process_id", str(rank)])
+    if rank == 0 and results is not None:
+        results.put(out)
+
+
+def spawn_ranks(entry: Callable, argv: List[str], world: int, keep_result: bool = False):
+    """``--n_devices``: ``world`` local processes, each ``entry(argv + the
+    rank flags)`` joined through a rendezvous on a free localhost port, one
+    a card where there are enough (``init_distributed``). Returns once all
+    have finished; with ``keep_result``, rank 0's return value (it must
+    pickle), else None."""
+    import torch.multiprocessing as mp
+
+    results = mp.get_context("spawn").SimpleQueue() if keep_result else None
+    ranks = mp.spawn(_spawned_rank, args=(entry, list(argv), world, _free_port(), results),
+                     nprocs=world, join=False)
+    out, done = None, False
+    while not done:
+        # rank 0 blocks in put() until its result is read: drain before the join
+        done = ranks.join(timeout=1)
+        if results is not None and not results.empty():
+            out = results.get()
+    return out
 
 
 def active() -> bool:
@@ -180,6 +214,15 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(world())]
     dist.all_gather(parts, src)
     return torch.cat(parts).to(t.device)
+
+
+def gather_objects(obj) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank."""
+    if not active():
+        return [obj]
+    out = [None] * world()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:

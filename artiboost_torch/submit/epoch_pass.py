@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from artiboost_torch.datasets.hoquery import Queries
+from artiboost_torch.parallel import mesh
 from artiboost_torch.utils.misc import logger
 from artiboost_torch.utils.transform import MANO_TO_OPENPOSE_ORDER
 
@@ -126,34 +127,69 @@ class HOSubmitEpochPass(SubmitEpochPass):
             tiles.append(np.asarray(tile))
         image_grid(tiles, ncol=4).save(os.path.join(self.draw_path, f"eval_batch_{bidx:04d}.png"))
 
+    def _drawn_rows(self, batch: Dict, preds: Dict, fitted_verts: Optional[torch.Tensor]):
+        """What ``draw_batch`` reads of the global batch, on every rank:
+        under a process group the first 16 rows of the image, intrinsics,
+        joints, corners and fitted verts, gathered in rank order (each rank
+        sends at most its first 16, so the first 16 gathered are the global
+        batch's); one process's batch as it is."""
+        if mesh.world() > 1:
+            k = min(int(batch[Queries.IMAGE].shape[0]), 16)
+
+            def take(t):
+                return mesh.all_gather_rows(t[:k].float())[:16]
+
+            batch = {q: take(batch[q]) for q in (Queries.IMAGE, Queries.CAM_INTR)}
+            preds = {q: take(preds[q]) for q in ("joints_3d_abs", "corners_3d_abs") if q in preds}
+            fitted_verts = None if fitted_verts is None else take(fitted_verts)
+        return batch, preds, None if fitted_verts is None else fitted_verts.cpu().numpy()
+
     def __call__(self, epoch_idx: int, eval_step: Callable, data_loader, evaluator,
                  dump_path: Optional[str] = None):
         """Run ``eval_step(batch) -> (preds, losses)`` over the loader into
-        the evaluator; fit, draw and collect the Codalab rows as asked."""
+        the evaluator; fit, draw and collect the Codalab rows as asked.
+
+        Under a process group each rank evaluates its rows of every global
+        batch (``padded_host_loader(rows=...)``): the evaluator is fed with
+        the global batch's valid count and reduced over the ranks after the
+        pass; each rank fits its own rows, then the joints, fitted verts and
+        SAMPLE_VALID are gathered in rank order, so the rows are the global
+        batch's in the dataset's order; only rank 0 draws (``draw_batch``
+        on the gathered first rows) and writes the JSON and zip."""
         _, unorder_idxs = self.get_order_idxs()
+        lead = mesh.rank() == 0
         res_joints: List[np.ndarray] = []
         res_verts: List[np.ndarray] = []
         for bidx, batch in enumerate(data_loader):
             preds, losses = eval_step(batch)
-            evaluator.feed_all(preds, batch, losses)
+            valid = batch.get(Queries.SAMPLE_VALID)
+            if valid is not None and mesh.world() > 1:
+                # every rank of a padded tail batch holds its rows of the mask
+                valid = mesh.all_gather_rows(valid)
+                evaluator.feed_all(preds, batch, losses, n_global=int(valid.sum()))
+            else:
+                evaluator.feed_all(preds, batch, losses)
             if not (self.dump or self.fit_mesh or self.draw):
                 continue
-            pred_joints = preds["joints_3d_abs"].float().cpu().numpy()
+            pred_joints = preds["joints_3d_abs"].detach()
             fitted_verts = None
             if self.fit_mesh and self.fitting_unit is not None:
-                fitted = self.fitting_unit(preds["joints_3d_abs"].detach(), batch)
-                fitted_verts = fitted["hand_verts"].cpu().numpy()
+                fitted = self.fitting_unit(pred_joints, batch)
+                fitted_verts = fitted["hand_verts"]
                 if self.fit_mesh_use_fitted_joints:
-                    pred_joints = fitted["joints"].cpu().numpy()
+                    pred_joints = fitted["joints"]
             if self.draw and bidx < self.draw_max_batches:
-                self.draw_batch(bidx, batch, preds, fitted_verts)
+                drawn = self._drawn_rows(batch, preds, fitted_verts)
+                if lead:
+                    self.draw_batch(bidx, *drawn)
             if not (self.dump or self.fit_mesh):
                 continue
+            pred_joints = mesh.all_gather_rows(pred_joints.float()).cpu().numpy()
+            if fitted_verts is not None:
+                fitted_verts = mesh.all_gather_rows(fitted_verts.float()).cpu().numpy()
             # the repeat-padded tail rows must not reach the dump: Codalab
             # expects exactly len(dataset) entries
-            n_valid = pred_joints.shape[0]
-            if Queries.SAMPLE_VALID in batch:
-                n_valid = int(batch[Queries.SAMPLE_VALID].sum())
+            n_valid = pred_joints.shape[0] if valid is None else int(valid.sum())
             # HO3D's Codalab convention: MANO-native joint order, y/z flip
             pj = pred_joints[:n_valid, unorder_idxs]
             pj[:, :, 0] = -pj[:, :, 0]
@@ -165,6 +201,8 @@ class HOSubmitEpochPass(SubmitEpochPass):
                 res_verts.extend([v for v in fitted_verts[:n_valid]])
             else:
                 res_verts.extend([np.zeros((778, 3))] * pj.shape[0])
-        if self.dump and dump_path:
+        if mesh.world() > 1:
+            evaluator.all_reduce()
+        if self.dump and dump_path and lead:
             self.dump_json(dump_path, res_joints, res_verts, codalab=True)
         return evaluator

@@ -40,6 +40,10 @@ every rank holds the same parameters and CCV weight map. Rank 0 owns the
 experiment directory, the summarizer and the trace; a ``--resume`` reads
 the same checkpoint on every rank.
 
+The command line is every flag of ``artiboost_tpu/opt.py`` (``utils/opt.py``);
+a flag training does not read (the submission's, the compatibility flags)
+is logged as having no effect, and an unknown flag raises.
+
 Usage:
     python -m artiboost_torch.train --cfg config/synthetic_smoke.yaml \\
         [--epochs N] [--batch_size B] [--device cuda|cpu] [--exp_id NAME] [--snapshot 50] \\
@@ -52,9 +56,8 @@ Usage:
 """
 from __future__ import annotations
 
-import argparse
 import os
-import socket
+import sys
 import time
 from collections import defaultdict
 from typing import Dict, Optional, Tuple
@@ -69,7 +72,7 @@ from artiboost_torch.metrics.evaluator import Evaluator, build_evaluator
 from artiboost_torch.models.arch import build_arch
 from artiboost_torch.parallel import mesh
 from artiboost_torch.parallel.train_state import TrainStep, eval_step
-from artiboost_torch.utils import profiling
+from artiboost_torch.utils import opt, profiling
 from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.config import load_config
 from artiboost_torch.utils.etqdm import etqdm
@@ -437,67 +440,26 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
             host.close()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(rank: int, argv, n_ranks: int, port: int):
-    """One of ``--n_devices``'s spawned ranks."""
-    main(list(argv) + ["--multihost", "--coordinator", f"localhost:{port}",
-                       "--num_processes", str(n_ranks), "--process_id", str(rank)])
+def build_parser():
+    """Every flag of ``artiboost_tpu/opt.py`` (``utils/opt.py``)."""
+    return opt.build_parser(__doc__.split("\n\n")[0])
 
 
 def main(argv=None) -> Dict:
-    """The command line (``artiboost_tpu/opt.py``'s flags that the port
-    runs) -> ``run``'s result, with the experiment's ``dump_path`` (None on
+    """The command line (``utils/opt.py``: every flag of
+    ``artiboost_tpu/opt.py``; those training does not read are logged as
+    having no effect) -> ``run``'s result, with the experiment's ``dump_path`` (None on
     a rank other than 0). ``--n_devices N`` spawns N ranks and returns
     {"ranks": N} once all have finished."""
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--cfg", default=None)
-    ap.add_argument("--epochs", type=int, default=None)
-    ap.add_argument("--batch_size", type=int, default=None, help="overrides TRAIN.BATCH_SIZE")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--exp_id", default="default")
-    ap.add_argument("--resume", default=None,
-                    help="experiment directory to resume; its dump_cfg.yaml is the config")
-    ap.add_argument("--evaluate", action="store_true",
-                    help="run one TEST pass (of the resumed model) instead of training")
-    ap.add_argument("--snapshot", type=int, default=50,
-                    help="keep a numbered checkpoint every this many epochs")
-    ap.add_argument("--test_freq", type=int, default=5,
-                    help="a TEST pass every this many epochs (0: none)")
-    ap.add_argument("--profile_dir", default=None,
-                    help="write a torch.profiler Chrome trace of epoch 0 here")
-    ap.add_argument("--profile_steps", type=int, default=20,
-                    help="the trace ends after this train step of epoch 0")
-    ap.add_argument("--workers", type=int, default=20,
-                    help="host data worker threads (image decode)")
-    ap.add_argument("--allow_dirty", action="store_true",
-                    help="record a named experiment from an uncommitted tree")
-    ap.add_argument("--multihost", action="store_true",
-                    help="join a data-parallel process group (torch.distributed)")
-    ap.add_argument("--coordinator", default=None,
-                    help="host:port of rank 0's rendezvous (omit under torchrun)")
-    ap.add_argument("--num_processes", type=int, default=None)
-    ap.add_argument("--process_id", type=int, default=None)
-    ap.add_argument("--n_devices", type=int, default=None,
-                    help="spawn this many local ranks, one a card (without --multihost)")
-    ap.add_argument("--gpu_id", default=None,
-                    help="compatibility no-op (the rank picks its card)")
+    ap = build_parser()
     args = ap.parse_args(argv)
     if not (args.cfg or args.resume):
         ap.error("--cfg is required unless --resume is given")
     device = resolve_device(args.device)
     if args.n_devices and args.n_devices > 1 and not args.multihost:
-        import sys
-
-        import torch.multiprocessing as mp
-
-        mp.spawn(_rank_main, args=(sys.argv[1:] if argv is None else argv, args.n_devices,
-                                   _free_port()), nprocs=args.n_devices, join=True)
+        mesh.spawn_ranks(main, sys.argv[1:] if argv is None else argv, args.n_devices)
         return {"ranks": args.n_devices}
+    opt.log_unread(args, ap, opt.NO_EFFECT + opt.SUBMIT_ONLY)
     joined = args.multihost and mesh.init_distributed(
         args.coordinator, args.num_processes, args.process_id, device_type=device.type)
     try:

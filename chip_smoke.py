@@ -186,21 +186,44 @@ Phases, each fatal on failure:
      divide_sum and [2, 2], softmax and [3, 3] at that width, in float32 and
      bfloat16, on the card against the CPU forward of the same weights
      (``HEAD_GAP``); the phase's seconds and train img/s.
+ 20. the submission over ranks (it runs after 13b, on phase 11's files):
+     phase 13's run (the float32 eval config, phase 11's checkpoint,
+     ``--submit_dump --postprocess_fit_mesh --postprocess_draw``) through
+     ``submit_reload.main`` with ``--multihost``, as ``--n_devices``'s
+     spawned ranks run it, by 2 processes on the one card (gloo), then by
+     1 process joined by NCCL, each against phase 13's 1-process run; then
+     2 ranks and 1 process with the arch in bfloat16, against each other.
+     Each process is this script with ``--submit-worker``. It checks each
+     rank's backend and card, both batches on every rank, every rank's
+     parameters the same bits after the load, the JSON written by rank 0
+     alone with the 1-process run's 160 rows in its order, joints and
+     fitted verts within SUBMIT_DP_ATOL and the measures within
+     SUBMIT_DP_RTOL of the 1-process run's, B2's launches those of the
+     1-process run (one a tile), all on rank 0, B2 bit-equal to its twin
+     on rank 0's first overlay tile, the overlays drawn by rank 0 alone;
+     then ``--filter_unseen_obj_idxs 9`` on the DexYCB eval config over an
+     s0 test split whose two scenes hold objects 5 and 9: the
+     ``corners_3d_abs`` EPE equals a float64 recomputation on the host of
+     what the metric was fed without object 9's rows, and parts from the
+     unfiltered figure; the eval seconds of each run.
 Every launch counter is zeroed just before phases 4 to 11 and 13, each
 run of phases 12, 13b and 16, phases 17 and 19 and, in its own process,
-each run of phases 14 and 18, and read just after each. TF32 is off. The
-lines before the last: the smoke's seconds, the kernel table as one JSON
-object (B1 launches from phases 8 to 12, 14, 16 (its pipelined run), 17,
-18 (its four processes) and 19, the two ranks' of phase 14 also apart, B2
-from 8 to 13b and 17, summed and by phase, B3 launches from phase 6) and
-the card's name and power limit; the last line: the ok JSON.
+each run of phases 14, 18 and 20, and read just after each. TF32 is off.
+The lines before the last: the smoke's seconds, the kernel table as one
+JSON object (B1 launches from phases 8 to 12, 14, 16 (its pipelined run),
+17, 18 (its four processes) and 19, the two ranks' of phase 14 also apart,
+B2 from 8 to 13b, 17 and 20, summed and by phase, B3 launches from phase
+6) and the card's name and power limit; the last line: the ok JSON.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
        (``python3 chip_smoke.py --dp-worker <json>`` is phase 14's own process,
        ``--order-worker <json>`` phase 16's deterministic one,
-       ``--repro-worker <json>`` one of phase 18's;
-       ``python3 chip_smoke.py --dp-cards`` runs phase 14's recipe one rank a
-       card over every card of a machine of 2 or more, by NCCL)
+       ``--repro-worker <json>`` one of phase 18's, ``--submit-worker
+       <json>`` one of phase 20's;
+       ``python3 chip_smoke.py --dp-cards`` runs phase 14's recipe, then
+       phase 20's submission, one rank a card over every card of a machine
+       of 2 or more, by NCCL; ``--dp-cards --submission`` the submission
+       alone)
 """
 import copy
 import json
@@ -1147,7 +1170,7 @@ def synth_options(card: str, hold, read_counts, zero_counts) -> dict:
     return total
 
 
-def submission(card: str, real: dict, hold, read_counts, zero_counts) -> dict:
+def submission(card: str, real: dict, hold, read_counts, zero_counts) -> tuple:
     """Phase 13: ``artiboost_torch.submit_reload.main`` on the released
     evaluation config (config_eval/eval_ho3dv2_clasbased_artiboost.yaml:
     ResNet34 at 224 x 224, batch 128) with DATA_ROOT at phase 11's files and
@@ -1156,8 +1179,8 @@ def submission(card: str, real: dict, hold, read_counts, zero_counts) -> dict:
     of 160 frames, one full batch and a tail padded from 32. Checks the
     Codalab JSON and zip, the fitted meshes against IKNet's warm start, the
     overlays (kernel B2, one launch a tile; the first tile's raster held
-    against B2's twin and timed), the recorded measures. -> the launches of
-    the run."""
+    against B2's twin and timed), the recorded measures. -> (the launches of
+    the run, {"pred_path", "measures", "launches", "seconds"} for phase 20)."""
     import zipfile
 
     import torch
@@ -1267,7 +1290,9 @@ def submission(card: str, real: dict, hold, read_counts, zero_counts) -> dict:
     hold(raster_rgb, inp, f"phase 13 overlay tile (fitted hand and object box, "
                           f"{inp.height}x{inp.width})")
     timing(raster_rgb, inp, 3, card, torch)
-    return launches
+    return launches, {"pred_path": os.path.join(tmp, out["pred_path"]),
+                      "measures": out["measures"], "launches": launches,
+                      "seconds": out["seconds"]}
 
 
 DP_RANK_TIMEOUT_S = 600  # each phase-14 process; its process group times out at 300 s
@@ -1482,21 +1507,27 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _dp_launch(world: int, tmp: str, tag: str, worker=None, **spec) -> list:
+def _dp_start(world: int, tmp: str, tag: str, worker=None, **spec) -> tuple:
     """``world`` phase-14 processes started together (``worker``: the
-    command that starts one, before its JSON spec) -> their records, rank
-    0's with ``params``, the path of its parameters; a process that fails or
-    outlives DP_RANK_TIMEOUT_S fails the phase."""
+    command that starts one, before its JSON spec) -> (processes, specs)."""
     port = _free_port()
     worker = worker or [sys.executable, os.path.abspath(__file__), "--dp-worker"]
     procs, specs = [], []
     for r in range(world):
-        specs.append(dict(spec, rank=r, world=world, port=port, workdir=tmp,
+        specs.append(dict(spec, rank=r, world=world, port=port, workdir=tmp, tag=tag,
                           out=os.path.join(tmp, f"{tag}_rank{r}.json"),
                           params=None if r or spec.get("resume") else os.path.join(tmp,
                                                                                    f"{tag}.pt")))
         procs.append(subprocess.Popen(worker + [json.dumps(specs[-1])], stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
+    return procs, specs
+
+
+def _dp_wait(started: tuple, label: str = "phase 14") -> list:
+    """The records of ``_dp_start``'s processes, rank 0's with ``params``,
+    the path of its parameters; a process that fails or outlives
+    DP_RANK_TIMEOUT_S fails the phase."""
+    procs, specs = started
     logs = []
     try:
         for p in procs:
@@ -1505,14 +1536,20 @@ def _dp_launch(world: int, tmp: str, tag: str, worker=None, **spec) -> list:
         for p in procs:
             p.kill()
             p.wait()
-        fail(f"phase 14 {tag}: a rank outlived {DP_RANK_TIMEOUT_S} s")
+        fail(f"{label} {specs[0]['tag']}: a rank outlived {DP_RANK_TIMEOUT_S} s")
     for r, (p, log) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"phase 14 {tag} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+        check(p.returncode == 0, f"{label} {specs[0]['tag']} rank {r} exited {p.returncode}:\n"
+                                 f"{log[-4000:]}")
     records = []
     for s in specs:
         with open(s["out"]) as f:
             records.append(dict(json.load(f), params=s["params"]))
     return records
+
+
+def _dp_launch(world: int, tmp: str, tag: str, worker=None, **spec) -> list:
+    """``_dp_start`` and ``_dp_wait``: ``world`` processes run to their end."""
+    return _dp_wait(_dp_start(world, tmp, tag, worker, **spec))
 
 
 def _dp_config(tmp: str, dtype: str = "bfloat16") -> str:
@@ -2367,6 +2404,354 @@ def other_eval_configs(card: str, real: dict, read_counts, zero_counts) -> dict:
         print(line, flush=True)
     return total
 
+# phase 20: the submission over ranks (``submit_reload`` with ``--multihost``,
+# the flags ``--n_devices`` gives its spawned ranks) against phase 13's run in
+# one process. Bounds on the dumped joints and fitted verts (metres, the
+# largest gap) and on the measures (relative, or 1e-8 absolute for a measure
+# that is float noise about 0), by the arch's compute dtype: each rank
+# convolves and fits 128 / N rows in place of 128, so cuDNN may take other
+# algorithms and the rows' last bits move. Read on the H100 at 2 ranks: in
+# float32 joints and verts 0 to 2 steps of the JSON's 5 decimals (1e-5 m)
+# apart, the measures 7.3e-8 to 1.1e-7; in bfloat16 joints and verts 1e-5 to
+# 3e-5, the measures 4.6e-5 to 9.1e-4 (a PCK curve counts joints under each
+# threshold, so bf16 noise can move it by whole counts). A row out of order
+# or a wrong tail weight moves them by centimetres and percent.
+SUBMIT_DP_ATOL = {"float32": 5e-5, "bfloat16": 1e-3}
+SUBMIT_DP_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def submit_worker(spec: dict):
+    """One process of phase 20 (``chip_smoke.py --submit-worker <json>``):
+    ``artiboost_torch.submit_reload.main`` with ``--multihost`` as rank
+    ``rank`` of ``world`` in ``workdir`` on ``cfg`` with ``--reload ckpt
+    --submit_dump --postprocess_fit_mesh --postprocess_draw``, the kernels'
+    launches counted around it, then B2 held against its twin on the first
+    overlay tile it drew; the record goes to ``out`` as JSON."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    os.chdir(spec["workdir"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from artiboost_torch import submit_reload
+    from artiboost_torch.ops.rasterizer_cuda import (finish_rgb_raster, prepare_raster, raster_rgb,
+                                                     raster_rgb_binned, raster_uv)
+    from artiboost_torch.parallel import mesh
+    from artiboost_torch.submit.epoch_pass import HOSubmitEpochPass
+    from artiboost_torch.viztools import draw as viz
+
+    rec, call = {"draws": 0}, {}
+    orig = {"raster": viz.rasterize_batch_rgb, "close": mesh.close,
+            "draw": HOSubmitEpochPass.draw_batch}
+
+    def raster(*args, **kw):
+        call.setdefault("call", (args, kw))
+        return orig["raster"](*args, **kw)
+
+    def draw(self, *args, **kw):
+        rec["draws"] += 1
+        return orig["draw"](self, *args, **kw)
+
+    def close():
+        rec["backend"] = mesh.backend()
+        orig["close"]()
+
+    viz.rasterize_batch_rgb, mesh.close, HOSubmitEpochPass.draw_batch = raster, close, draw
+    draw_dir = os.path.join(spec["workdir"], f"draw_{spec['tag']}")
+    kernels = (raster_uv, raster_rgb, raster_rgb_binned)
+    for k in kernels:
+        k.launches = 0
+    out = submit_reload.main(["--cfg", spec["cfg"], "--reload", spec["ckpt"], "--exp_id",
+                              spec["tag"], "--submit_dump", "--postprocess_fit_mesh",
+                              "--postprocess_draw", "--postprocess_draw_path", draw_dir,
+                              "--multihost", "--coordinator", f"localhost:{spec['port']}",
+                              "--num_processes", str(spec["world"]), "--process_id",
+                              str(spec["rank"])])
+    torch.cuda.synchronize()
+    rec["launches"] = {k.name: k.launches for k in kernels}
+    rec.update({k: out[k] for k in ("measures", "weights", "batches", "seconds", "ranks",
+                                    "param_digests")})
+    rec["pred_path"] = (os.path.join(spec["workdir"], out["pred_path"]) if out["pred_path"]
+                        else None)
+    rec["pngs"] = sorted(os.listdir(draw_dir)) if os.path.isdir(draw_dir) else []
+    rec["device"] = f"cuda:{torch.cuda.current_device()}"
+    if call:
+        inp = prepare_raster(*call["call"][0], **call["call"][1])
+        err, equal = compare(raster_rgb, finish_rgb_raster, inp, torch)
+        rec["rgb_hold"] = {"size": [inp.height, inp.width], "max_abs_err": err, "equal": equal}
+    with open(spec["out"], "w") as f:
+        json.dump(rec, f)
+
+
+def _submit_config(tmp: str, data: str, dtype: Optional[str] = None) -> str:
+    """config_eval/eval_ho3dv2_clasbased_artiboost.yaml (ResNet34 at 224 x
+    224, batch 128; no DTYPE: float32) with DATA_ROOT at ``data``, its arch
+    in ``dtype`` if given, written to ``tmp`` -> its path."""
+    import yaml
+
+    from artiboost_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "config_eval", "eval_ho3dv2_clasbased_artiboost.yaml"))
+    cfg["DATASET"]["TEST"]["DATA_ROOT"] = data
+    if dtype:
+        cfg["ARCH"]["DTYPE"] = dtype
+    path = os.path.join(tmp, f"eval_{dtype or 'config'}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _rows(pred_path: str):
+    import numpy as np
+
+    with open(pred_path) as f:
+        xyz, verts = json.load(f)
+    return np.asarray(xyz, np.float64), np.asarray(verts, np.float64)
+
+
+def _submit_check(ranks: list, base: dict, label: str, backend: str, devices: list,
+                  dtype: str) -> dict:
+    """An N-rank submission's records against a 1-process run's ``base``
+    ({"pred_path", "measures", "launches"}): every rank on ``backend`` and
+    its card, both batches on every rank, the same parameter bits on every
+    rank, rank 0 alone writing the JSON and drawing, with the 1-process
+    run's launches (B2 once a tile) and B2 bit-equal to its twin on the
+    first tile; the JSON's rows in count and order, joints and fitted verts
+    within SUBMIT_DP_ATOL, the measures within SUBMIT_DP_RTOL -> the
+    readings {"joints", "verts", "measures", "rgb_err"}."""
+    import numpy as np
+
+    n = len(ranks)
+    for r, rec in enumerate(ranks):
+        check(rec["backend"] == backend and rec["ranks"] == n and rec["device"] == devices[r]
+              and rec["batches"] == 2 and len(rec["param_digests"]) == n,
+              f"{label} rank {r}: backend {rec['backend']}, {rec['ranks']} ranks, "
+              f"{rec['device']}, {rec['batches']} batches")
+        check(len(set(rec["param_digests"])) == 1
+              and rec["param_digests"] == ranks[0]["param_digests"],
+              f"{label}: the ranks' parameters differ after the load: {rec['param_digests']}")
+        want = base["launches"] if r == 0 else {k: 0 for k in base["launches"]}
+        check(rec["launches"] == want and (rec["pred_path"] is None) == (r > 0)
+              and rec["draws"] == (2 if r == 0 else 0)
+              and rec["pngs"] == ["eval_batch_0000.png", "eval_batch_0001.png"],
+              f"{label} rank {r}: launches {rec['launches']} (want {want}), JSON "
+              f"{rec['pred_path']}, {rec['draws']} overlay grids drawn, {rec['pngs']} in the "
+              f"run's directory")
+    hold = ranks[0]["rgb_hold"]
+    print(f"raster_rgb {label} rank 0's first overlay tile ({hold['size'][0]}x{hold['size'][1]}): "
+          f"bit-equal={hold['equal']} max_abs_err={hold['max_abs_err']}", flush=True)
+    check(hold["equal"], f"raster_rgb differs from its plain twin on {label}'s first overlay tile")
+    xyz, verts = _rows(ranks[0]["pred_path"])
+    bx, bv = _rows(base["pred_path"])
+    check(xyz.shape == bx.shape == (len(bx), 21, 3) and verts.shape == bv.shape
+          == (len(bx), 778, 3), f"{label}: JSON rows {xyz.shape} {verts.shape}, 1 process "
+                                f"{bx.shape} {bv.shape}")
+    gaps = np.abs(bx[:, None] - xyz[None]).max(axis=(2, 3))
+    check(bool((gaps.argmin(axis=1) == np.arange(len(bx))).all()),
+          f"{label}: the JSON's rows are not in the 1-process run's order")
+    got = {"joints": float(np.abs(xyz - bx).max()), "verts": float(np.abs(verts - bv).max()),
+           "rgb_err": hold["max_abs_err"]}
+    check(set(ranks[0]["measures"]) == set(base["measures"]),
+          f"{label}: measures {sorted(ranks[0]['measures'])} against {sorted(base['measures'])}")
+    got["measures"], got["measure"] = max(
+        (abs(ranks[0]["measures"][m][k] - v) / max(abs(v), 1e-8 / SUBMIT_DP_RTOL[dtype]),
+         f"{m}.{k}") for m, vals in base["measures"].items() for k, v in vals.items())
+    check(got["joints"] <= SUBMIT_DP_ATOL[dtype] and got["verts"] <= SUBMIT_DP_ATOL[dtype]
+          and got["measures"] <= SUBMIT_DP_RTOL[dtype],
+          f"{label} ({dtype}): joints {got['joints']:.3e} m and fitted verts {got['verts']:.3e} m "
+          f"from 1 process's (bound {SUBMIT_DP_ATOL[dtype]}), measures {got['measures']:.3e} "
+          f"relative at {got['measure']} (bound {SUBMIT_DP_RTOL[dtype]})")
+    return got
+
+
+def _submit_line(got: dict) -> str:
+    return (f"joints {got['joints']:.4e} m, fitted verts {got['verts']:.4e} m, measures "
+            f"{got['measures']:.4e} relative apart (the most at {got['measure']})")
+
+
+def submission_ranks(card: str, real: dict, base: dict, kernels: dict) -> dict:
+    """Phase 20: phase 13's submission (the float32 eval config on phase
+    11's 160 frames and checkpoint, ``--submit_dump --postprocess_fit_mesh
+    --postprocess_draw``) by 2 ranks on the one card (gloo), then by 1
+    process joined by NCCL, each held against phase 13's 1-process run
+    ``base``; then the same 2 ranks and 1 process in bfloat16, together,
+    against each other. Each process is a ``--submit-worker`` of this
+    script. B2's hold goes into ``kernels``. -> B2's launches by run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_submit_dp_")
+    try:
+        cfg32 = _submit_config(tmp, real["data"])
+        spec = {"ckpt": real["ckpt"], "worker": [sys.executable, os.path.abspath(__file__),
+                                                 "--submit-worker"]}
+        two = _dp_wait(_dp_start(2, tmp, "sub_two", cfg=cfg32, **spec), "phase 20")
+        one = _dp_wait(_dp_start(1, tmp, "sub_one", cfg=cfg32, **spec), "phase 20")
+        cfg16 = _submit_config(tmp, real["data"], "bfloat16")
+        started = [_dp_start(2, tmp, "sub_two16", cfg=cfg16, **spec),
+                   _dp_start(1, tmp, "sub_one16", cfg=cfg16, **spec)]
+        two16, one16 = (_dp_wait(s, "phase 20") for s in started)
+        got = _submit_check(two, base, "phase 20, 2 ranks", "gloo", ["cuda:0"] * 2, "float32")
+        got1 = _submit_check(one, base, "phase 20, 1 process", "nccl", ["cuda:0"], "float32")
+        check(one16[0]["launches"] == base["launches"] and one16[0]["rgb_hold"]["equal"]
+              and one16[0]["backend"] == "nccl",
+              f"phase 20 bfloat16, 1 process: launches {one16[0]['launches']}, B2 held "
+              f"{one16[0]['rgb_hold']}, backend {one16[0]['backend']}")
+        base16 = dict(one16[0], launches=base["launches"])
+        got16 = _submit_check(two16, base16, "phase 20 bfloat16, 2 ranks", "gloo",
+                              ["cuda:0"] * 2, "bfloat16")
+        check(two[0]["param_digests"][0] == one[0]["param_digests"][0]
+              and two16[0]["param_digests"][0] == one16[0]["param_digests"][0],
+              "phase 20: the ranks and the 1-process run loaded other parameters")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels["raster_rgb"]["max_abs_err"] = max(kernels["raster_rgb"]["max_abs_err"], got["rgb_err"],
+                                               got1["rgb_err"], got16["rgb_err"])
+    print(f"phase 20, submission over ranks ({card}): phase 13's run (float32 eval config, "
+          f"{len(_rows(base['pred_path'])[0])} frames in 2 batches of 128, fit and draw) in "
+          f"{base['seconds']:.2f} s of eval pass in 1 process; 2 ranks on the one card (gloo) "
+          f"{two[0]['seconds']:.2f} s (rank 1 {two[1]['seconds']:.2f} s), {_submit_line(got)}; "
+          f"1 process by NCCL {one[0]['seconds']:.2f} s, {_submit_line(got1)}; every rank's "
+          f"parameters the same bits after the load; B2 {two[0]['launches']['raster_rgb']} "
+          f"launches, all on rank 0, as in phase 13. bfloat16, 2 ranks against 1 process (run "
+          f"together, {two16[0]['seconds']:.2f} s and {one16[0]['seconds']:.2f} s): "
+          f"{_submit_line(got16)}", flush=True)
+    return {name: {k: sum(rec["launches"][k] for rec in recs) for k in recs[0]["launches"]}
+            for name, recs in (("two", two), ("one", one), ("two16", two16),
+                               ("one16", one16))}
+
+
+def filter_unseen(card: str, real: dict) -> None:
+    """Phase 20's filter run: ``submit_reload.main`` on
+    config_eval/eval_dexycb_clasbased_sym_artiboost.yaml from a random init
+    with ``--filter_unseen_obj_idxs 9``, on an s0 test split of 128 frames
+    whose two scenes hold objects 5 and 9 (``datasets/layouts.py``, the
+    second scene's object rewritten): the Mean3DEPE ``corners_3d_abs`` EPE
+    equals a float64 recomputation on the host of what the metric was fed,
+    dropping the rows of object 9, and parts from the unfiltered figure."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from artiboost_torch import submit_reload
+    from artiboost_torch.datasets import layouts
+    from artiboost_torch.datasets.hoquery import Queries
+    from artiboost_torch.metrics.meanepe import Mean3DEPE
+    from artiboost_torch.utils.batching import key_validity
+    from artiboost_torch.utils.config import load_config
+    from artiboost_torch.utils.misc import CONST
+
+    tmp = real["root"]
+    data = os.path.join(tmp, "data_filter")
+    layouts.write_dexycb(data, 4, 5, 1, np.random.RandomState(20), test_frames=32)
+    scene = os.path.join(data, "DexYCB", layouts.DEXYCB_SUBJECTS[3], "202003_000004")
+    with open(os.path.join(scene, "meta.yml")) as f:
+        meta = yaml.safe_load(f)
+    meta["ycb_ids"] = [9]
+    with open(os.path.join(scene, "meta.yml"), "w") as f:
+        yaml.safe_dump(meta, f)
+    verts, _, faces = layouts.sphere_mesh(6, 8, (0.03, 0.035, 0.04))
+    layouts.write_obj(os.path.join(data, "DexYCB", "models", CONST.YCB_IDX2CLASSES[9],
+                                   "textured_simple.obj"), verts, faces=faces)
+    cfg = load_config(os.path.join(REPO, "config_eval", "eval_dexycb_clasbased_sym_artiboost.yaml"))
+    for split in cfg["DATASET"].values():
+        split["DATA_ROOT"] = data
+    # the sample cache's key holds no DATA_ROOT (as JAX's): phase 13b's list,
+    # of object 5 alone, would stand in for this split's
+    cfg["DATA_PRESET"]["USE_CACHE"] = False
+    fed, orig = [], Mean3DEPE.feed
+
+    def feed(self, preds, targs, **kw):
+        kv = key_validity(targs, Queries.CORNERS_3D, Queries.ROOT_JOINT)
+        mask = targs.get(Queries.SAMPLE_VALID, torch.ones_like(targs[Queries.OBJ_IDX].float()))
+        fed.append({"pred": preds["corners_3d_abs"].double().cpu(),
+                    "targ": (targs[Queries.CORNERS_3D]
+                             + targs[Queries.ROOT_JOINT][:, None]).double().cpu(),
+                    "obj": targs[Queries.OBJ_IDX].cpu(),
+                    "mask": (mask.float() * (1.0 if kv is None else kv)).cpu(),
+                    "filter": list(self.filter_unseen_obj_idxs), "mm": self.to_millimeters})
+        return orig(self, preds, targs, **kw)
+
+    Mean3DEPE.feed = feed
+    try:
+        os.chdir(tmp)
+        with open("eval_filter.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        out = submit_reload.main(["--cfg", "eval_filter.yaml", "--exp_id", "smoke20f",
+                                  "--filter_unseen_obj_idxs", "9"])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(REPO)
+        Mean3DEPE.feed = orig
+    pred, targ, obj, mask = (torch.cat([f[k] for f in fed]) for k in ("pred", "targ", "obj",
+                                                                       "mask"))
+    d = (pred - targ).norm(dim=2).mean(dim=1) * (1000.0 if fed[0]["mm"] else 1.0)
+    keep = (mask > 0) & (obj != 9)
+    host, unfiltered = float(d[keep].mean()), float(d[mask > 0].mean())
+    got = out["measures"]["Mean3DEPE"]["corners_3d_abs_mepe"]
+    ids = sorted({int(i) for i in obj[mask > 0]})
+    rel = abs(got - host) / abs(host)
+    print(f"phase 20 --filter_unseen_obj_idxs 9 ({card}): DexYCB s0 test split of {len(obj)} "
+          f"frames (objects {ids}), {int(keep.sum())} rows kept of {int((mask > 0).sum())}: "
+          f"corners_3d_abs EPE {got:.6f} against {host:.6f} recomputed on the host "
+          f"({rel:.3e} relative; unfiltered {unfiltered:.6f})", flush=True)
+    check(fed[0]["filter"] == [9] and ids == [5, 9] and 0 < int(keep.sum()) < int((mask > 0).sum()),
+          f"phase 20 filter: the metric's filter {fed[0]['filter']}, objects {ids}, "
+          f"{int(keep.sum())} rows kept")
+    check(rel <= 1e-5 and abs(unfiltered - host) > 1e-3 * abs(host),
+          f"phase 20 filter: corners EPE {got} against {host} recomputed (unfiltered {unfiltered})")
+
+
+def submission_files(tmp: str) -> dict:
+    """Phase 20's inputs without phase 11: the released files
+    (``write_real_layout``) under ``tmp`` and a checkpoint of the float32
+    eval arch's seeded initialisation -> {"root", "data", "ckpt",
+    "n_test"}."""
+    import torch
+
+    from artiboost_torch.models.arch import build_arch
+    from artiboost_torch.utils.config import load_config
+
+    real = write_real_layout(tmp, load_config(os.path.join(
+        REPO, "config", "ho3dv2_clasbased_artiboost.yaml")))
+    cfg = load_config(_submit_config(tmp, real["data"]))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        arch = build_arch(cfg["ARCH"], cfg["DATA_PRESET"])
+    ckpt = os.path.join(tmp, "latest.pt")
+    torch.save({"epoch": 0, "model": arch.state_dict()}, ckpt)
+    return dict(real, root=tmp, ckpt=ckpt)
+
+
+def submission_cards(card: str, n: int) -> None:
+    """``--dp-cards``: phase 20's submission (the float32 eval config,
+    ``--submit_dump --postprocess_fit_mesh --postprocess_draw``) on the
+    released files and a seeded checkpoint (``submission_files``) by 1
+    process (NCCL), then one rank a card over all ``n`` cards (NCCL); phase
+    20's checks against the 1-process run and both runs' eval seconds."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_submit_cards_")
+    try:
+        real = submission_files(tmp)
+        spec = {"cfg": _submit_config(tmp, real["data"]), "ckpt": real["ckpt"],
+                "worker": [sys.executable, os.path.abspath(__file__), "--submit-worker"]}
+        one = _dp_wait(_dp_start(1, tmp, "sub_one", **spec), "--dp-cards submission")
+        ranks = _dp_wait(_dp_start(n, tmp, "sub_n", **spec), "--dp-cards submission")
+        want = {"raster_uv": 0, "raster_rgb": 32, "raster_rgb_binned": 0}
+        check(one[0]["launches"] == want and one[0]["rgb_hold"]["equal"]
+              and one[0]["backend"] == "nccl" and one[0]["batches"] == 2,
+              f"--dp-cards submission, 1 process: launches {one[0]['launches']}, B2 held "
+              f"{one[0]['rgb_hold']}, backend {one[0]['backend']}")
+        got = _submit_check(ranks, one[0], f"--dp-cards submission, {n} ranks", "nccl",
+                            [f"cuda:{r}" for r in range(n)], "float32")
+        n_frames = len(_rows(one[0]["pred_path"])[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"submission over {n} cards ({card}): the float32 eval config on {n_frames} HO3D "
+          f"frames (2 batches of 128, fit and draw) from a seeded checkpoint; 1 process "
+          f"(NCCL) {one[0]['seconds']:.2f} s of eval pass, {n} ranks (NCCL, one card each) "
+          f"{ranks[0]['seconds']:.2f} s (the slowest rank "
+          f"{max(r['seconds'] for r in ranks):.2f} s); {_submit_line(got)}; every rank's "
+          f"parameters the same bits; B2 {ranks[0]['launches']['raster_rgb']} launches, all "
+          f"on rank 0", flush=True)
+
+
 # phase 19 (``head_forwards``): heads at the released recipe's width with the
 # options the recipe does not use, on the card against the port's CPU forward
 # of the same weights and input, in float32 and in the recipe's bfloat16. A
@@ -2883,8 +3268,14 @@ def main():
         launches12 = synth_options(card, hold, read_counts, zero_counts)
 
         # ---- 13. the submission entry point on phase 11's files and checkpoint ----
-        launches13 = submission(card, real, hold, read_counts, zero_counts)
+        launches13, run13 = submission(card, real, hold, read_counts, zero_counts)
         launches13b = other_eval_configs(card, real, read_counts, zero_counts)
+
+        # ---- 20. the submission over ranks, and --filter_unseen_obj_idxs ----
+        t20 = time.perf_counter()
+        launches20 = submission_ranks(card, real, run13, kernels)
+        filter_unseen(card, real)
+        print(f"phase 20 ({card}): {time.perf_counter() - t20:.2f} s", flush=True)
     finally:
         shutil.rmtree(real_dir, ignore_errors=True)
 
@@ -2914,7 +3305,9 @@ def main():
                  "16": launches16, "17": launches17, "18": launches18, "19": launches19}
     for name, src_line, phases in (("raster_uv", 222, main_path),
                                    ("raster_rgb", 201, dict(main_path, **{
-                                       "13": launches13, "13b": launches13b})),
+                                       "13": launches13, "13b": launches13b, "20": {
+                                           k: sum(c[k] for c in launches20.values())
+                                           for k in launches13}})),
                                    ("raster_rgb_binned", 272, {"6": launches6})):
         k = kernels[name]
         by_phase = {p: counts[name] for p, counts in phases.items()}
@@ -2925,7 +3318,7 @@ def main():
                      "max_abs_err": k["max_abs_err"],
                      "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": None})
-    print(f"chip_smoke: phases 1-19 passed in {time.perf_counter() - t_smoke:.1f} s "
+    print(f"chip_smoke: phases 1-20 passed in {time.perf_counter() - t_smoke:.1f} s "
           f"({card})", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -2935,7 +3328,9 @@ def main():
 
 def dp_cards_main():
     """``python3 chip_smoke.py --dp-cards``: data parallelism over every card
-    of the machine, one rank a card (``data_parallel_cards``)."""
+    of the machine, one rank a card: training (``data_parallel_cards``),
+    then the submission (``submission_cards``); ``--dp-cards --submission``
+    runs the submission alone."""
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -2949,7 +3344,9 @@ def dp_cards_main():
                           "--format=csv,noheader"], capture_output=True, text=True)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = ", ".join(sorted(set(smi.stdout.strip().splitlines())))
-    data_parallel_cards(card, torch.cuda.device_count())
+    if "--submission" not in sys.argv:
+        data_parallel_cards(card, torch.cuda.device_count())
+    submission_cards(card, torch.cuda.device_count())
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2963,7 +3360,9 @@ if __name__ == "__main__":
         order_worker(json.loads(sys.argv[2]))
     elif len(sys.argv) == 3 and sys.argv[1] == "--repro-worker":
         repro_worker(json.loads(sys.argv[2]))
-    elif sys.argv[1:] == ["--dp-cards"]:
+    elif len(sys.argv) == 3 and sys.argv[1] == "--submit-worker":
+        submit_worker(json.loads(sys.argv[2]))
+    elif sys.argv[1:] in (["--dp-cards"], ["--dp-cards", "--submission"]):
         dp_cards_main()
     else:
         main()

@@ -50,6 +50,7 @@ from artiboost_torch.artiboost.view_engine import ViewEngineConfig, persp_rotmat
 from artiboost_torch.mano.model import ManoModel, get_mano_model
 from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
 from artiboost_torch.parallel import mesh
+from artiboost_torch.utils import profiling
 from artiboost_torch.utils.batching import union_concat
 from artiboost_torch.utils.misc import logger, resolve_device
 from artiboost_torch.utils.prefetch import IN_PLACE
@@ -157,7 +158,8 @@ class DrawSource:
 
     def loss(self, criterion) -> List[Dict]:
         """The criterion's draws for one step."""
-        return criterion.draws(self.generator, self.device)
+        with profiling.trace("model/loss_draws"):
+            return criterion.draws(self.generator, self.device)
 
 
 class ArtiBoostLoader:
@@ -294,14 +296,16 @@ class ArtiBoostLoader:
             oid, vid, gid = (torch.cat([x, x[:pad]]) for x in (oid, vid, gid))
         lo, hi = mesh.rows(chunk)
         pieces = []
-        for s in range(0, n_pad, chunk):
-            draws = mesh.shard_rows(self.draws.poses(self.pose_generator, chunk), chunk)
-            piece = self.pose_generator(oid[s + lo:s + hi], vid[s + lo:s + hi],
-                                        gid[s + lo:s + hi], draws)
-            if self.n_ranks > 1:
-                piece = GeneratedPoses(*(mesh.all_gather_rows(x) for x in piece))
-            pieces.append(piece)
-        return cat_poses(pieces, n)
+        with profiling.trace("engine/sweep", triplets=n):
+            for s in range(0, n_pad, chunk):
+                with profiling.trace("engine/chunk"):
+                    draws = mesh.shard_rows(self.draws.poses(self.pose_generator, chunk), chunk)
+                    piece = self.pose_generator(oid[s + lo:s + hi], vid[s + lo:s + hi],
+                                                gid[s + lo:s + hi], draws)
+                    if self.n_ranks > 1:
+                        piece = GeneratedPoses(*(mesh.all_gather_rows(x) for x in piece))
+                pieces.append(piece)
+            return cat_poses(pieces, n)
 
     def prepare_val(self):
         """Val sweep (reference ovg_set.py:104-132): uniform weights masked
@@ -341,7 +345,8 @@ class ArtiBoostLoader:
         lo, hi = mesh.rows(bs)
         for s in range(0, n - bs + 1, bs):
             idx = torch.arange(s + lo, s + hi, device=self.device)
-            draws = mesh.shard_rows(self.draws.synth(self.synth_batch_fn, bs), bs)
+            with profiling.trace("synth/draws"):
+                draws = mesh.shard_rows(self.draws.synth(self.synth_batch_fn, bs), bs)
             yield self.synth_batch_fn(self.generated_val, idx, draws)
 
     # ---- the train epoch: mixed real/synth batches ----
@@ -393,11 +398,12 @@ class ArtiBoostLoader:
         batch's: ``synth_part`` renders this rank's rows)."""
         if synth_idx is None:
             return None
-        host = torch.as_tensor(synth_idx, dtype=torch.int64)
-        if self.device.type != "cuda":
-            return host
-        # from pinned memory without waiting: a pageable copy synchronizes
-        return host.pin_memory().to(self.device, non_blocking=True)
+        with profiling.trace("synth/indices"):
+            host = torch.as_tensor(synth_idx, dtype=torch.int64)
+            if self.device.type != "cuda":
+                return host
+            # from pinned memory without waiting: a pageable copy synchronizes
+            return host.pin_memory().to(self.device, non_blocking=True)
 
     def real_part(self, host_batch) -> Dict:
         """The device half of a plan's real batch: this rank's rows of the
@@ -421,7 +427,8 @@ class ArtiBoostLoader:
         """Render the synth half of a train batch from the epoch's poses:
         the draws of all ``sidx``, this rank's rows rendered."""
         n = int(sidx.shape[0])
-        draws = mesh.shard_rows(self.draws.synth(self.synth_batch_fn, n), n)
+        with profiling.trace("synth/draws"):
+            draws = mesh.shard_rows(self.draws.synth(self.synth_batch_fn, n), n)
         lo, hi = mesh.rows(n)
         return self.synth_batch_fn(self.generated, sidx[lo:hi], draws)
 
@@ -442,16 +449,17 @@ class ArtiBoostLoader:
         self.epoch_idx = epoch_idx
         if not self.use_synth:
             return
-        maps = [m.get_averaged_maps() for m in evaluator.metrics_list
-                if isinstance(m, (ValMetricMean3DEPE2, ValMetricAR2))]
-        if not maps:
-            logger.warning("no ValMetric found; skipping ArtiBoost reweight")
-            return
-        avg = sum(m[0] for m in maps) / len(maps)
-        seen = maps[0][1]
-        for m in maps[1:]:
-            seen = seen & m[1]
-        self.sample_reweight(avg, seen, epoch_idx)
+        with profiling.trace("mining/step_eval"):
+            maps = [m.get_averaged_maps() for m in evaluator.metrics_list
+                    if isinstance(m, (ValMetricMean3DEPE2, ValMetricAR2))]
+            if not maps:
+                logger.warning("no ValMetric found; skipping ArtiBoost reweight")
+                return
+            avg = sum(m[0] for m in maps) / len(maps)
+            seen = maps[0][1]
+            for m in maps[1:]:
+                seen = seen & m[1]
+            self.sample_reweight(avg, seen, epoch_idx)
         logger.info(f"ArtiBoost finished mining after epoch {epoch_idx}")
 
     def sample_reweight(self, val_map, seen, epoch_idx: int):

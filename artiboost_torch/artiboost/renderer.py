@@ -25,6 +25,7 @@ from artiboost_torch.ops.rasterizer import (
     vertex_normals_indexed,
 )
 from artiboost_torch.ops.rasterizer_cuda import rasterize_batch_rgb, rasterize_batch_uv
+from artiboost_torch.utils import profiling
 from artiboost_torch.utils.misc import device_constant, resolve_device
 
 
@@ -501,8 +502,9 @@ def render_scene(verts: torch.Tensor, colors: torch.Tensor, faces: torch.Tensor,
         attrs = torch.cat([texturing.uv, s[..., None], vp[..., None]], dim=-1)
         quv, sh, pg, _win, depth = rasterize_batch_uv(vs, attrs, faces, face_valid, height,
                                                       width, cull_backfaces=cull_backfaces)
-        rgb = sample_textures(quv, sh, pg, texturing, bilinear=bilinear,
-                              subsample=tex_subsample)
+        with profiling.trace("synth/texture"):
+            rgb = sample_textures(quv, sh, pg, texturing, bilinear=bilinear,
+                                  subsample=tex_subsample)
     else:
         shaded = shade_vertices(verts, normals, colors, ambient, light_pos, light_int,
                                 torch.ones((1, 3), device=verts.device))

@@ -407,7 +407,7 @@ class HODataset(ABC):
         decode runs on ``pool`` (an executor) when given; the geometry and
         its draws stay on the calling thread."""
         t0 = time.perf_counter()
-        with profiling.thread_trace("data/real_geometry"):
+        with profiling.trace("data/real_geometry"):
             geoms = [self._make_geom(i) for i in idx_list]
             sidx = [int(g[Queries.SAMPLE_IDX]) for g in geoms]
             flips = np.array([bool(g.pop("_flip")) for g in geoms])
@@ -429,7 +429,7 @@ class HODataset(ABC):
             images[k] = img
 
         try:
-            with profiling.thread_trace("data/real_decode"):
+            with profiling.trace("data/real_decode"):
                 if pool is None:
                     for k in range(len(sidx)):
                         decode(k)
@@ -449,21 +449,23 @@ class HODataset(ABC):
         those rows of the host half (a rank's share, ``mesh.rows``), their
         vertex fields padded to the whole host half's longest."""
         lo, hi = (0, len(host.sample_idx)) if rows is None else rows
-        if host.images is None:
-            images = self.get_images(torch.as_tensor(host.sample_idx[lo:hi], device=self.device))
-        elif host.staging is not None:
-            images = host.staging.upload(host.slot, self.device)[lo:hi]
-        else:
-            images = torch.from_numpy(host.images[lo:hi]).to(self.device)
-        flips = torch.as_tensor(host.flips[lo:hi], device=self.device)
-        images = torch.where(flips[:, None, None, None], images.flip(2), images)
-        batch = ho_collate(host.geoms[lo:hi], self.device,
-                           pad_to=None if rows is None else _longest_verts(host.geoms))
-        batch[Queries.IMAGE] = warp_affine_batch(
-            images, torch.from_numpy(host.inv_affines[lo:hi]).to(self.device),
-            torch.from_numpy(host.jitter[lo:hi]).to(self.device), self.image_size[1],
-            self.image_size[0])
-        return batch
+        with profiling.trace("data/real_device"):
+            if host.images is None:
+                images = self.get_images(torch.as_tensor(host.sample_idx[lo:hi],
+                                                         device=self.device))
+            elif host.staging is not None:
+                images = host.staging.upload(host.slot, self.device)[lo:hi]
+            else:
+                images = torch.from_numpy(host.images[lo:hi]).to(self.device)
+            flips = torch.as_tensor(host.flips[lo:hi], device=self.device)
+            images = torch.where(flips[:, None, None, None], images.flip(2), images)
+            batch = ho_collate(host.geoms[lo:hi], self.device,
+                               pad_to=None if rows is None else _longest_verts(host.geoms))
+            batch[Queries.IMAGE] = warp_affine_batch(
+                images, torch.from_numpy(host.inv_affines[lo:hi]).to(self.device),
+                torch.from_numpy(host.jitter[lo:hi]).to(self.device), self.image_size[1],
+                self.image_size[0])
+            return batch
 
     def sample_batch(self, idx_list: Sequence[int]) -> Dict[str, torch.Tensor]:
         """Batch assembly on the calling thread: the host half, then the
@@ -488,8 +490,7 @@ def padded_host_loader(dataset: HODataset, batch_size: int, shuffle: bool = Fals
                         for s in range(0, len(order), batch_size)))
     lo, hi = (0, batch_size) if rows is None else rows
     for hb, n_valid in (host or IN_PLACE).host_halves(dataset, plan, batch_size):
-        with profiling.trace("data/real_device"):
-            batch = dataset.device_half(hb, rows=rows)
+        batch = dataset.device_half(hb, rows=rows)
         if n_valid < batch_size:
             valid = torch.zeros((batch_size,), dtype=torch.float32, device=dataset.device)
             valid[:n_valid] = 1.0

@@ -19,6 +19,7 @@ from artiboost_torch.metrics.pckmetric import (
 from artiboost_torch.metrics.val_metric import ValMetricAR2, ValMetricMean3DEPE2
 from artiboost_torch.metrics.vismetric import Vis2DMetric, VisHand2DMetric, VisMetric
 from artiboost_torch.parallel import mesh
+from artiboost_torch.utils import profiling
 from artiboost_torch.utils.misc import logger, resolve_device
 from artiboost_torch.utils.registry import METRIC, build_from_cfg
 
@@ -48,16 +49,17 @@ class Evaluator:
         batch's count (default: this rank's times the world) and each rank
         weights its losses by ``n_global / world``."""
         batch_size = int(preds[next(iter(preds))].shape[0])
-        if Queries.SAMPLE_VALID in targs:
-            batch_size = int(targs[Queries.SAMPLE_VALID].sum())
-        n_ranks = mesh.world()
-        if n_ranks > 1:
-            batch_size = (batch_size * n_ranks if n_global is None else n_global) / n_ranks
-        for metric in self.metrics_list:
-            if isinstance(metric, LossesMetric):
-                metric.feed(losses, batch_size=batch_size)
-            else:
-                metric.feed(preds=preds, targs=targs)
+        with profiling.trace("metrics/feed"):
+            if Queries.SAMPLE_VALID in targs:
+                batch_size = int(targs[Queries.SAMPLE_VALID].sum())
+            n_ranks = mesh.world()
+            if n_ranks > 1:
+                batch_size = (batch_size * n_ranks if n_global is None else n_global) / n_ranks
+            for metric in self.metrics_list:
+                if isinstance(metric, LossesMetric):
+                    metric.feed(losses, batch_size=batch_size)
+                else:
+                    metric.feed(preds=preds, targs=targs)
 
     def all_reduce(self):
         """After a pass under a process group: every metric's accumulators

@@ -530,25 +530,26 @@ class RasterKernel:
         stream = torch.cuda.current_stream(geom.device).cuda_stream
         ptrs = lambda *ts: tuple(t.data_ptr() for t in ts)  # noqa: E731
         tables = ptrs(inp.tiles, inp.chunk_box, inp.face_box)
-        if self.name == "raster_uv":
-            quv, qsp, depth = (torch.empty((B, n_pix), **f32) for _ in range(3))
-            win = torch.empty((B, n_pix), dtype=torch.int32, device=geom.device)
-            err = lib.raster_uv_launch(*tables, *ptrs(geom, col, quv, qsp, win, depth), B,
-                                       geom.shape[1], inp.height, inp.width, stream)
-            out = (quv, qsp, win, depth)
-        else:
-            rgb = torch.empty((B, n_pix, 3), **f32)
-            depth = torch.empty((B, n_pix), **f32)
-            if self.name == "raster_rgb":
-                err = lib.raster_rgb_launch(*tables, *ptrs(geom, col, rgb, depth), B,
-                                            geom.shape[1], inp.height, inp.width, stream)
+        with trace("raster/kernel"):
+            if self.name == "raster_uv":
+                quv, qsp, depth = (torch.empty((B, n_pix), **f32) for _ in range(3))
+                win = torch.empty((B, n_pix), dtype=torch.int32, device=geom.device)
+                err = lib.raster_uv_launch(*tables, *ptrs(geom, col, quv, qsp, win, depth), B,
+                                           geom.shape[1], inp.height, inp.width, stream)
+                out = (quv, qsp, win, depth)
             else:
-                err = lib.raster_rgb_binned_launch(*tables, *ptrs(geom, col, rgb, depth), B,
-                                                   geom.shape[1], geom.shape[2], inp.height,
-                                                   inp.width, inp.tile[0], stream)
-            out = (rgb, depth)
-        if err != 0:
-            raise RuntimeError(f"{self.name}_launch failed: CUDA error {err}")
+                rgb = torch.empty((B, n_pix, 3), **f32)
+                depth = torch.empty((B, n_pix), **f32)
+                if self.name == "raster_rgb":
+                    err = lib.raster_rgb_launch(*tables, *ptrs(geom, col, rgb, depth), B,
+                                                geom.shape[1], inp.height, inp.width, stream)
+                else:
+                    err = lib.raster_rgb_binned_launch(*tables, *ptrs(geom, col, rgb, depth), B,
+                                                       geom.shape[1], geom.shape[2], inp.height,
+                                                       inp.width, inp.tile[0], stream)
+                out = (rgb, depth)
+            if err != 0:
+                raise RuntimeError(f"{self.name}_launch failed: CUDA error {err}")
         self.launches += 1
         return out
 

@@ -25,6 +25,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from artiboost_torch.utils import profiling
 from artiboost_torch.utils.misc import logger
 
 TIMEOUT_S = 300  # a lost rank fails the run after this long instead of hanging it
@@ -190,11 +191,12 @@ def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
     """In-place sum over ranks (the same bits on every rank)."""
     if not active():
         return t
-    staged = _on_backend(t)
-    dist.all_reduce(staged)
-    if staged is not t:
-        t.copy_(staged)
-    return t
+    with profiling.trace("mesh/all_reduce", bytes=_nbytes(t)):
+        staged = _on_backend(t)
+        dist.all_reduce(staged)
+        if staged is not t:
+            t.copy_(staged)
+        return t
 
 
 def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
@@ -210,29 +212,37 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
     rank's ``t`` has the same shape)."""
     if world() == 1:
         return t
-    src = _on_backend(t.detach().contiguous())
-    parts = [torch.empty_like(src) for _ in range(world())]
-    dist.all_gather(parts, src)
-    return torch.cat(parts).to(t.device)
+    with profiling.trace("mesh/all_gather", bytes=_nbytes(t)):
+        src = _on_backend(t.detach().contiguous())
+        parts = [torch.empty_like(src) for _ in range(world())]
+        dist.all_gather(parts, src)
+        return torch.cat(parts).to(t.device)
 
 
 def gather_objects(obj) -> list:
     """Every rank's picklable ``obj``, in rank order, on every rank."""
     if not active():
         return [obj]
-    out = [None] * world()
-    dist.all_gather_object(out, obj)
-    return out
+    with profiling.trace("mesh/all_gather_object"):
+        out = [None] * world()
+        dist.all_gather_object(out, obj)
+        return out
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     if not active():
         return t
-    staged = _on_backend(t)
-    dist.broadcast(staged, src)
-    if staged is not t:
-        t.copy_(staged)
-    return t
+    with profiling.trace("mesh/broadcast", bytes=_nbytes(t)):
+        staged = _on_backend(t)
+        dist.broadcast(staged, src)
+        if staged is not t:
+            t.copy_(staged)
+        return t
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    """The bytes of ``t`` this rank puts into a collective (a span's count)."""
+    return t.numel() * t.element_size()
 
 
 def _flat_groups(tensors: Iterable[torch.Tensor]) -> Dict[torch.dtype, List[torch.Tensor]]:
@@ -262,11 +272,12 @@ def all_reduce_grads(params: List[torch.Tensor]) -> None:
     if not active():
         return
     grads = [p.grad for p in params if p.grad is not None]
-    for gs in _flat_groups(grads).values():
-        flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in gs]))
-        flat /= world()
-        for g, piece in zip(gs, flat.split([g.numel() for g in gs])):
-            g.copy_(piece.view_as(g))
+    with profiling.trace("mesh/all_reduce_grads"):
+        for gs in _flat_groups(grads).values():
+            flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in gs]))
+            flat /= world()
+            for g, piece in zip(gs, flat.split([g.numel() for g in gs])):
+                g.copy_(piece.view_as(g))
 
 
 def shard_normaliser(count: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 
 from artiboost_torch.criterions.criterion import Criterion
 from artiboost_torch.parallel import mesh
+from artiboost_torch.utils import profiling
 from artiboost_torch.utils.misc import resolve_device
 
 
@@ -114,28 +115,31 @@ class TrainStep:
         self.step = 0
 
     def forward_backward(self, batch: Dict, loss_draws: List[Dict]) -> Tuple[Dict, Dict]:
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        preds = self.model(batch)
-        total, losses = self.criterion.compute_losses(preds, batch, loss_draws)
-        total.backward()
-        mesh.all_reduce_grads(self.params)
-        return ({k: v.detach() for k, v in preds.items()},
-                {k: v.detach() for k, v in losses.items()})
+        with profiling.trace("model/forward_backward"):
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            preds = self.model(batch)
+            total, losses = self.criterion.compute_losses(preds, batch, loss_draws)
+            total.backward()
+            mesh.all_reduce_grads(self.params)
+            return ({k: v.detach() for k, v in preds.items()},
+                    {k: v.detach() for k, v in losses.items()})
 
     def update(self):
-        if self.grad_clip:
-            clip_by_global_norm(self.params, self.grad_clip)
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.step += 1
+        with profiling.trace("model/update"):
+            if self.grad_clip:
+                clip_by_global_norm(self.params, self.grad_clip)
+            lr = self.schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.step += 1
 
     def __call__(self, batch: Dict, loss_draws: List[Dict]) -> Tuple[Dict, Dict]:
-        out = self.forward_backward(batch, loss_draws)
-        self.update()
-        return out
+        with profiling.trace("artiboost/train_step"):
+            out = self.forward_backward(batch, loss_draws)
+            self.update()
+            return out
 
 
 @torch.no_grad()

@@ -187,20 +187,19 @@ def train_epoch(loader: ArtiBoostLoader, step: TrainStep, evaluator: Evaluator,
             t = timer.add("synth batch", t)
             real = None
             if hb is not None:
-                with profiling.trace("data/real_device"):
-                    real = loader.real_part(hb)
+                real = loader.real_part(hb)
                 out["real_host"] = [a + b for a, b in zip(out["real_host"], hb.seconds)]
                 t = timer.add("real batch", t)
             batch = union_concat([p for p in (real, synth) if p])
-            with profiling.trace("artiboost/train_step"):
-                preds, losses = step(batch, loss_draws)
-                t = timer.add("train step", t)
+            preds, losses = step(batch, loss_draws)
+            t = timer.add("train step", t)
             evaluator.feed_all(preds, batch, losses)
             if bidx % LOG_EVERY == 0:
-                bar.set_postfix_str(str(evaluator))
-                if summarizer is not None:
-                    summarizer.summarize_losses(global_losses(losses), step.step,
-                                                prefix="train")
+                with profiling.trace("train/log"):
+                    bar.set_postfix_str(str(evaluator))
+                    if summarizer is not None:
+                        summarizer.summarize_losses(global_losses(losses), step.step,
+                                                    prefix="train")
             t = timer.add("metric+mining", t)
         if bidx == stop_trace_after and profiling.stop_trace():
             t = timer.mark()
@@ -396,8 +395,7 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
             if traced:
                 profiling.start_trace(profile[0])
             t = timer.mark()
-            with profiling.trace("artiboost/prepare"):
-                loader.prepare()
+            loader.prepare()
             timer.add("pose sweep", t)
             record = {"epoch": epoch, "train": train_epoch(
                 loader, step, evaluator, timer, summarizer,
@@ -411,8 +409,7 @@ def run(cfg: Dict, epochs: Optional[int] = None, device=None,
                 recorder.record_evaluator(evaluator, epoch, "train")
             if loader.should_val(epoch):
                 t = timer.mark()
-                with profiling.trace("artiboost/prepare_val"):
-                    loader.prepare_val()
+                loader.prepare_val()
                 timer.add("pose sweep", t)
                 record["val"] = val_epoch(loader, arch, criterion, evaluator, timer, epoch)
                 record["val"]["measures"] = evaluator.get_measures_all_striped()

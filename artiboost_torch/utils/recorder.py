@@ -27,6 +27,7 @@ import torch
 import yaml
 
 from artiboost_torch.metrics.vismetric import VisMetric
+from artiboost_torch.utils import profiling
 from artiboost_torch.utils.logger import add_file_handler
 from artiboost_torch.utils.misc import logger
 
@@ -102,9 +103,11 @@ def _draw_arch_png(names: List[str], edges: List[Tuple[str, str]], path: str) ->
     img.save(path)
 
 
-def _save_npz(path: str, state: Dict) -> None:
+def _save_npz(path: str, state: Dict) -> int:
+    """-> the bytes written."""
     with open(path, "wb") as f:
         np.savez(f, **{k: np.asarray(v) for k, v in state.items() if not isinstance(v, bool)})
+        return f.tell()
 
 
 class Recorder:
@@ -158,29 +161,35 @@ class Recorder:
         schedule position are stored with torch's CPU (and CUDA) RNG
         states. The stored epoch is the number of COMPLETED epochs, so a
         resumed run continues with ``range(epoch, n_epochs)``."""
-        payload = {"epoch": epoch + 1, "model": step.model.state_dict(),
-                   "optimizer": step.optimizer.state_dict(), "scheduler": {"step": step.step},
-                   "rng_cpu": torch.get_rng_state()}
-        if torch.cuda.is_available():
-            payload["rng_cuda"] = torch.cuda.get_rng_state_all()
-        self._save(os.path.join(self.ckpt_dir, "latest.pt"), payload)
-        if artiboost_state is not None:
-            _save_npz(os.path.join(self.ckpt_dir, "artiboost_latest.npz"), artiboost_state)
-            if not artiboost_state.get("use_synth", True):
-                open(os.path.join(self.ckpt_dir, "synth_shutdown"), "w").close()
-        if snapshot and (epoch + 1) % snapshot == 0:
-            self._save(os.path.join(self.ckpt_dir, f"epoch_{epoch + 1}.pt"), payload)
+        with profiling.trace("recorder/checkpoint") as span:
+            payload = {"epoch": epoch + 1, "model": step.model.state_dict(),
+                       "optimizer": step.optimizer.state_dict(),
+                       "scheduler": {"step": step.step}, "rng_cpu": torch.get_rng_state()}
+            if torch.cuda.is_available():
+                payload["rng_cuda"] = torch.cuda.get_rng_state_all()
+            n = self._save(os.path.join(self.ckpt_dir, "latest.pt"), payload)
             if artiboost_state is not None:
-                _save_npz(os.path.join(self.ckpt_dir, f"artiboost_epoch_{epoch + 1}.npz"),
-                          artiboost_state)
+                n += _save_npz(os.path.join(self.ckpt_dir, "artiboost_latest.npz"),
+                               artiboost_state)
+                if not artiboost_state.get("use_synth", True):
+                    open(os.path.join(self.ckpt_dir, "synth_shutdown"), "w").close()
+            if snapshot and (epoch + 1) % snapshot == 0:
+                n += self._save(os.path.join(self.ckpt_dir, f"epoch_{epoch + 1}.pt"), payload)
+                if artiboost_state is not None:
+                    n += _save_npz(os.path.join(self.ckpt_dir,
+                                                f"artiboost_epoch_{epoch + 1}.npz"),
+                                   artiboost_state)
+            span.count(bytes=n)
 
     @staticmethod
-    def _save(path: str, payload: Dict) -> None:
+    def _save(path: str, payload: Dict) -> int:
         """Write beside the target, then rename: a run killed mid-write
-        leaves the previous checkpoint intact."""
+        leaves the previous checkpoint intact. -> the bytes written."""
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
+        n = os.path.getsize(tmp)
         os.replace(tmp, path)
+        return n
 
     def resume_checkpoints(self, step, path: Optional[str] = None) -> int:
         """Load a checkpoint (default ``latest.pt``) into ``step``'s model,

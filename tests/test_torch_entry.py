@@ -321,11 +321,11 @@ def test_profile_dir_writes_a_chrome_trace(smoke_run):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
-    assert names.count("artiboost/prepare") == 1
+    # epoch 0's pose sweep; the trace ended at step 2 of epoch 0, before the val sweep's
+    assert names.count("engine/sweep") == 1
     assert sorted(n for n in names if n.startswith("train#")) == ["train#0", "train#1", "train#2"]
     assert names.count("artiboost/train_step") == 3
     assert "raster/prepare_raster" in names
-    assert "artiboost/prepare_val" not in names  # the trace ended at step 2 of epoch 0
 
 
 def test_snapshot_default_is_the_jax_packages(smoke_run):

@@ -29,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-NO_FMA_ENV = {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_cpu_max_isa=AVX"}
+from tests._proc import NO_FMA, subprocess_env
+
 SYNTH = {"TYPE": "SyntheticHO", "DATA_SPLIT": "train", "AUG": True, "N_SAMPLES": 16,
          "RAW_SIZE": 128, "AUG_PARAM": {"SCALE_JIT": 0.1, "CENTER_JIT": 0.1, "MAX_ROT": 0.2}}
 PRESET = {"BBOX_EXPAND_RATIO": 1.2, "IMAGE_SIZE": [64, 64], "CENTER_IDX": 0,
@@ -218,10 +219,9 @@ def synthetic_ho_draws(ref, prefix=""):
                        for i in range(n_chunks)]}
 
 
-def run_jax_subprocess(script, *args, timeout=900):
+def run_jax_subprocess(script, *args, timeout=240):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, **NO_FMA_ENV,
-               PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    env = subprocess_env(*NO_FMA)
     res = subprocess.run([sys.executable, script, *map(str, args)], env=env,
                          capture_output=True, text=True, timeout=timeout, cwd=repo)
     assert res.returncode == 0, res.stderr[-4000:]

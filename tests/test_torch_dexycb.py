@@ -10,7 +10,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from artiboost_torch.datasets.dexycb import DexYCB as TDex
 from artiboost_tpu.datasets.dexycb import DexYCB as JDex
@@ -20,14 +19,6 @@ AUG = {"SCALE_JIT": 0.1, "CENTER_JIT": 0.1, "MAX_ROT": 0.2}
 ACCESSORS = ("get_cam_intr", "get_joints_3d", "get_corners_3d", "get_corners_can",
              "get_obj_transf", "get_obj_idx", "get_obj_verts_can", "get_hand_pose",
              "get_hand_shape", "get_hand_verts_3d", "get_sides")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _write_model(root, rng):

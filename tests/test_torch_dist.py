@@ -45,19 +45,12 @@ import yaml
 from artiboost_torch import train
 from artiboost_torch.artiboost import loader as t_loader
 from artiboost_torch.utils.config import load_config
+from tests._proc import subprocess_env
 
 REPO = Path(__file__).resolve().parents[1]
 SMOKE = REPO / "config" / "synthetic_smoke.yaml"
 BATCH = 8
 RANK_TIMEOUT_S = 150
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _free_port() -> int:
@@ -204,7 +197,7 @@ def _ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist")
     cfg = small_config(d / "small.yaml")
     ports = [str(_free_port()), str(_free_port())]
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = subprocess_env()
     procs = [subprocess.Popen([sys.executable, str(REPO / "tests" / "test_torch_dist_worker.py"),
                                str(r), *ports, str(d), str(d / "small.yaml"),
                                str(d / f"rank{r}.pt")],

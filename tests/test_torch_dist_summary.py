@@ -35,6 +35,7 @@ from artiboost_torch import train  # noqa: E402
 from artiboost_torch.artiboost.loader import digest  # noqa: E402
 from artiboost_torch.parallel import mesh  # noqa: E402
 from artiboost_torch.utils.summarizer import NullSummarizer  # noqa: E402
+from tests._proc import subprocess_env  # noqa: E402
 
 RANK_TIMEOUT_S = 150
 
@@ -52,7 +53,6 @@ class ListSummarizer(NullSummarizer):
 def worker():
     rank, port = int(sys.argv[1]), int(sys.argv[2])
     workdir, cfg_path, out_path = sys.argv[3:6]
-    torch.set_num_threads(1)
     os.chdir(workdir)
     import yaml
 
@@ -97,7 +97,7 @@ def draws_worker():
 
 
 def _spawn(args_of_rank, timeout=RANK_TIMEOUT_S):
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = subprocess_env()
     procs = [subprocess.Popen([sys.executable, __file__, *args_of_rank(r)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(2)]
@@ -136,7 +136,7 @@ def ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("dist_summary")
     cfg = small_config(d / "small.yaml")
     port = str(_free_port())
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = subprocess_env()
     procs = [subprocess.Popen([sys.executable, __file__, str(r), port, str(d),
                                str(d / "small.yaml"), str(d / f"rank{r}.pt")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
@@ -145,13 +145,10 @@ def ranks(tmp_path_factory):
         single = ListSummarizer()
         cwd = os.getcwd()
         os.chdir(d)
-        n = torch.get_num_threads()
-        torch.set_num_threads(1)
         try:
             train.run(cfg, epochs=1, device="cpu", summarizer=single, test_freq=0)
         finally:
             os.chdir(cwd)
-            torch.set_num_threads(n)
         logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0].decode() for p in procs]
     finally:
         for p in procs:

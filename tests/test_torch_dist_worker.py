@@ -71,7 +71,6 @@ def bn_check() -> dict:
 def main():
     rank, port_a, port_b = (int(a) for a in sys.argv[1:4])
     workdir, cfg_path, out_path = sys.argv[4:7]
-    torch.set_num_threads(1)
     os.chdir(workdir)
     out = {"rank": rank}
     mesh.init_distributed(f"localhost:{port_a}", 2, rank, device_type="cpu", timeout_s=120)

@@ -26,16 +26,6 @@ SMOKE = REPO / "config" / "synthetic_smoke.yaml"
 N_TEST, BATCH = 20, 8
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per process while this file runs (the suite runs
-    several workers on the host's cores; see tests/test_torch_recorder.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _in_dir(path, fn):
     cwd = os.getcwd()
     os.chdir(path)

@@ -12,7 +12,6 @@ import os
 import cv2
 import numpy as np
 import pytest
-import torch
 
 from artiboost_torch.datasets.fhb import FPHB as TFPHB
 from artiboost_torch.datasets.fhb import resize_linear
@@ -21,14 +20,6 @@ from tests.test_fhb_fixture import PRESET, _write_seq
 
 ACCESSORS = ("get_cam_intr", "get_joints_3d", "get_corners_3d", "get_corners_can",
              "get_obj_transf", "get_obj_idx")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -24,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+from tests._proc import NO_FMA, subprocess_env, time_left
 from tests.test_torch_train import jax_ordinal_draws
-from tests.test_torch_train_slice import NO_FMA_ENV, ReplayDraws, _unflatten
+from tests.test_torch_train_slice import ReplayDraws, _unflatten
 
 CFG_PATH = "config/synthetic_smoke.yaml"
 EPOCHS = 2
@@ -244,14 +245,13 @@ def _jax_gate(path_out, cache_dir, cfg_path=CFG_PATH, epochs=EPOCHS, train_cfg=N
 
 def run_jax_gate(tmp_path_factory, script, *args):
     """``script`` (a gate test file, whose main runs ``_jax_gate`` on its
-    config) in a subprocess, ``args`` after its two paths -> (the recorded
-    JAX run, its directory)."""
+    config) in a subprocess, ``args`` after its two paths, killed before the
+    test's time limit -> (the recorded JAX run, its directory)."""
     d = tmp_path_factory.mktemp("gate_ref")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, **NO_FMA_ENV,
-               PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    env = subprocess_env(*NO_FMA)
     res = subprocess.run([sys.executable, script, str(d / "ref.npz"), str(d / "jax_cache"), *args],
-                         env=env, capture_output=True, text=True, timeout=1200, cwd=repo)
+                         env=env, capture_output=True, text=True, timeout=time_left(), cwd=repo)
     assert res.returncode == 0, res.stderr[-4000:]
     with np.load(d / "ref.npz") as z:
         return {k: z[k] for k in z.files}, d
@@ -342,6 +342,7 @@ def _bound(name, key):
     return 1.2e-2 if name == "ValMetricMean3DEPE2" else 2.2e-2
 
 
+@pytest.mark.limit(1020)
 def test_gate_against_jax(torch_gate):
     """The uncut smoke config, two epochs, against the JAX loop. Exact: the
     replay counts, every pass's batch count, and after each epoch the seen

@@ -84,6 +84,7 @@ BOUNDS = {"step0": 7.6e-4, "step": 0.097, "ord": 0.11, "losses": 0.182, "mean3de
           "val_epe": 0.034, "map_mm": 18.7, "weights": 0.167}
 
 
+@pytest.mark.limit(900)
 def test_gate_reg_against_jax(torch_gate):
     """Bounds, each 3x the figure measured here over the epoch's three
     passes (in parentheses):

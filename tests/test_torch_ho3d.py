@@ -27,7 +27,6 @@ import pickle
 import cv2
 import numpy as np
 import pytest
-import torch
 
 from artiboost_torch.datasets.ho3d import HO3D as THO3D
 from artiboost_torch.datasets.ho3d import HO3DV3 as THO3DV3
@@ -37,14 +36,6 @@ from artiboost_tpu.datasets.ho3d import HO3DV3 as JHO3DV3
 from tests.test_ho3d_fixture import PRESET, _write_seq
 
 AUG = {"SCALE_JIT": 0.1, "CENTER_JIT": 0.1, "MAX_ROT": 0.2}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

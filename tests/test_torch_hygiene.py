@@ -4,15 +4,13 @@ every submodule in a process where those imports fail), and the entry
 points (``train``, ``chip_parity``) refuse to fall back to the CPU
 quietly."""
 import ast
-import os
 import subprocess
 import sys
-from pathlib import Path
 
 import pytest
 import torch
 
-REPO = Path(__file__).resolve().parents[1]
+from tests._proc import REPO, subprocess_env
 FORBIDDEN = ("jax", "jaxlib", "flax", "artiboost_tpu")
 
 
@@ -47,8 +45,8 @@ def test_every_submodule_imports_with_jax_blocked():
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=300,
-                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+                         text=True, timeout=240,
+                         env=subprocess_env())
     assert res.returncode == 0, res.stderr[-3000:]
     assert int(res.stdout.strip().splitlines()[-1]) >= 25
 

@@ -40,16 +40,6 @@ def _jax_script(name):
     return mod
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _synth_batch(rng, B=12, V=48):
     return {"obj_id": rng.randint(0, 4, B).astype(np.int32),
             "persp_id": rng.randint(0, V, B).astype(np.int32),

@@ -30,16 +30,6 @@ from artiboost_torch.utils.config import load_config
 SMOKE = "config/synthetic_smoke.yaml"
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def small_config(real: bool) -> dict:
     """synthetic_smoke.yaml at batch 4, 64 x 64, a 128 x 128 render and
     32-wide deconvs: synth-only (CONFIG_LEN_TRAIN 12: 3 steps) or with 8

@@ -43,16 +43,6 @@ B = 8
 WEIGHTS = asset_path("assets/iknet_tpu.npz")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def models():
     return j_mano(), t_mano(device="cpu")

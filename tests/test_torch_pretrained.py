@@ -35,14 +35,6 @@ MANO_HEAD = {"TYPE": "ManoBranch", "INPUT_DIM": 512, "NCOMPS": 15, "USE_PCA": Tr
              "USE_SHAPE": True}
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _batch(seed=1, n=2):
     rng = np.random.RandomState(seed)
     return {"image": rng.rand(n, 64, 64, 3).astype(np.float32) - 0.5,

@@ -13,7 +13,6 @@ in a subprocess with ``--xla_cpu_max_isa=AVX`` (no FMA instructions), the
 separately rounded arithmetic of the contract. The kernels themselves run
 only on a card: ``chip_smoke.py`` holds them bit-exact against the twins
 on the same scenes (``artiboost_torch/ops/raster_scenes.py``)."""
-import os
 import subprocess
 import sys
 
@@ -32,8 +31,7 @@ from artiboost_torch.ops.rasterizer_cuda import (
     rasterize_batch_rgb,
     rasterize_batch_uv,
 )
-
-NO_FMA_ENV = {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_cpu_max_isa=AVX"}
+from tests._proc import NO_FMA, subprocess_env
 
 
 def _cases():
@@ -87,11 +85,9 @@ def _jax_reference(cases, path_out):
 def jax_ref(tmp_path_factory):
     d = tmp_path_factory.mktemp("raster_ref")
     out = d / "ref.npz"
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, **NO_FMA_ENV,
-               PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    env = subprocess_env(*NO_FMA)
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-4000:]
     with np.load(out) as z:
         return {k: z[k] for k in z.files}

@@ -21,7 +21,6 @@ Tolerances:
     on depth and 7.6e-6 on attributes on the gate's scenes.
 The kernel itself runs only on a card: ``chip_smoke.py`` holds it bit for
 bit against the twin."""
-import os
 import subprocess
 import sys
 
@@ -33,20 +32,7 @@ from artiboost_torch import chip_parity
 from artiboost_torch.ops import rasterizer_cuda as rc
 from artiboost_torch.ops.raster_scenes import random_scene, raster_check_scenes, rgb_attrs
 from artiboost_torch.ops.rasterizer import rasterize_batch
-
-NO_FMA_ENV = {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_cpu_max_isa=AVX"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per process while this file runs: the suite runs
-    several workers on the host's cores, and a per-op thread pool in each
-    of them oversubscribes the cores and makes these small ops several
-    times slower. Every comparison here is made at one thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._proc import NO_FMA, subprocess_env
 
 
 def _cases():
@@ -99,9 +85,7 @@ def _jax_reference_run(tmp_path_factory):
         arrays[f"{name}/shape"] = np.array([c["H"], c["W"], c["cull"], c["xbin_w"],
                                             c["tile_rows"]])
     np.savez(d / "cases.npz", **arrays)
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, **NO_FMA_ENV,
-               PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    env = subprocess_env(*NO_FMA)
     with open(d / "stderr.txt", "w") as err:
         proc = subprocess.Popen([sys.executable, "-c", _JAX_REFERENCE, str(d / "cases.npz"),
                                  str(d / "ref.npz")], env=env, stdout=subprocess.DEVNULL,
@@ -115,7 +99,7 @@ def _jax_reference_run(tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_ref(_jax_reference_run):
     proc, d = _jax_reference_run
-    assert proc.wait(timeout=600) == 0, (d / "stderr.txt").read_text()[-4000:]
+    assert proc.wait(timeout=240) == 0, (d / "stderr.txt").read_text()[-4000:]
     with np.load(d / "ref.npz") as z:
         return {k: z[k] for k in z.files}
 

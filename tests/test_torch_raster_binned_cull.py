@@ -31,7 +31,6 @@ Cases: those of ``tests/test_torch_raster_binned.py`` (random scenes at
 culling off and on, and the 8 x 4 tile on the 700-face scene). The kernel
 itself runs only on a card: ``chip_smoke.py`` holds it bit for bit against
 the twin."""
-import os
 import subprocess
 import sys
 
@@ -42,7 +41,8 @@ import torch
 from artiboost_torch.ops import rasterizer_cuda as rc
 from artiboost_torch.ops.raster_measure import face_evaluations, region_columns, scanned_faces
 from artiboost_torch.ops.raster_scenes import random_scene, rgb_attrs
-from tests.test_torch_raster_binned import _JAX_REFERENCE, CASES, CASES_1D, NO_FMA_ENV
+from tests._proc import NO_FMA, subprocess_env
+from tests.test_torch_raster_binned import _JAX_REFERENCE, CASES, CASES_1D
 
 T = rc.RASTER_TILE
 R = rc.RASTER_REGION
@@ -50,16 +50,6 @@ R = rc.RASTER_REGION
 BIG = dict(random_scene(np.random.RandomState(9), 1, 300, 500, 64, 256), cull=False, xbin_w=128,
            tile_rows=32)
 BIG["rgb"] = rgb_attrs(BIG)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per process while this file runs, as in the other
-    raster test files: the suite's workers would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,9 +61,7 @@ def _jax_reference_run(tmp_path_factory):
     arrays["big/shape"] = np.array([BIG["H"], BIG["W"], BIG["cull"], BIG["xbin_w"],
                                     BIG["tile_rows"]])
     np.savez(d / "cases.npz", **arrays)
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, **NO_FMA_ENV,
-               PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    env = subprocess_env(*NO_FMA)
     with open(d / "stderr.txt", "w") as err:
         proc = subprocess.Popen([sys.executable, "-c", _JAX_REFERENCE, str(d / "cases.npz"),
                                  str(d / "ref.npz")], env=env, stdout=subprocess.DEVNULL,
@@ -87,7 +75,7 @@ def _jax_reference_run(tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_big(_jax_reference_run):
     proc, d = _jax_reference_run
-    assert proc.wait(timeout=600) == 0, (d / "stderr.txt").read_text()[-4000:]
+    assert proc.wait(timeout=240) == 0, (d / "stderr.txt").read_text()[-4000:]
     with np.load(d / "ref.npz") as z:
         return {k: z[k] for k in z.files}
 

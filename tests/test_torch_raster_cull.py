@@ -38,16 +38,6 @@ SCENES = [f"{name}_cull{int(cull)}" for name in raster_check_scenes()
           for cull in (False, True)] + ["synthetic_ho"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per process while this file runs, as in the other
-    raster test files: the suite's workers would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @lru_cache(maxsize=None)
 def _raster_args(scene: str):
     """-> (args of ``prepare_raster`` with (u, v, shade, page) attrs or None,

@@ -12,7 +12,6 @@ import json
 import os
 
 import numpy as np
-import torch
 import yaml
 
 from tests.test_torch_real_slice import REPO, write_fixture
@@ -37,9 +36,8 @@ def test_released_recipe_trains_on_ho3d(tmp_path):
         parts.append([int(x["image"].shape[0]) for x in p])
         return orig(p)
 
-    cwd, n_threads = os.getcwd(), torch.get_num_threads()
+    cwd = os.getcwd()
     os.chdir(tmp_path)
-    torch.set_num_threads(1)
     train.union_concat = union
     try:
         out = train.main(["--cfg", cfg_path, "--device", "cpu", "--epochs", "1",
@@ -47,7 +45,6 @@ def test_released_recipe_trains_on_ho3d(tmp_path):
                           "--profile_dir", str(tmp_path / "trace"), "--profile_steps", "2"])
     finally:
         train.union_concat = orig
-        torch.set_num_threads(n_threads)
         os.chdir(cwd)
     assert len(out["train_data"]) == 16 and len(out["test_data"]) == 20
     (record,) = out["history"]

@@ -130,6 +130,7 @@ def gates(tmp_path_factory):
     return ref, out, replay, real
 
 
+@pytest.mark.limit(490)
 def test_real_slice_against_jax(gates):
     ref, out, replay, real = gates
     assert replay.count == {"triplets": 2, "poses": 2, "synth": 3, "perm": 2, "loss": 3 + 2}
@@ -160,9 +161,6 @@ def test_real_slice_against_jax(gates):
 
 
 if __name__ == "__main__":
-    # one XLA thread: the run is compile-bound at this size, and the suite's
-    # other JAX runs share the cores
-    os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + " --xla_cpu_multi_thread_eigen=false"
     import jax
 
     jax.config.update("jax_platforms", "cpu")

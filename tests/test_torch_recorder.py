@@ -28,18 +28,6 @@ from artiboost_torch.utils.recorder import Recorder
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread per process while this file runs: the suite runs
-    several workers on the host's cores, and a per-op thread pool in each
-    of them oversubscribes the cores and makes these small ops several
-    times slower. Every comparison here is made at one thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 class _Eval:
     metrics_list = []
 

@@ -61,16 +61,6 @@ FACTORY_CLASSES = {
 REAL_DATA = ("HO3D", "HO3DV3", "DexYCB", "FPHB")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _jax_names():
     return [(r, name) for r in REGISTRIES for name in getattr(j_reg, r).module_dict]
 

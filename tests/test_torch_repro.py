@@ -193,7 +193,6 @@ def test_two_processes_same_checkpoint(tmp_path):
     batch, on the CPU): every leaf of the two checkpoints is the same bits,
     torch's RNG states included (torch seeds its CPU generator differently
     in every process; the run seeds it from MANUAL_SEED)."""
-    import os
     import subprocess
     import sys
     from pathlib import Path
@@ -201,6 +200,7 @@ def test_two_processes_same_checkpoint(tmp_path):
     import yaml
 
     from artiboost_torch.utils.config import load_config
+    from tests._proc import subprocess_env
 
     repo = Path(__file__).resolve().parents[1]
     cfg = load_config(str(repo / "config" / "synthetic_smoke.yaml"))
@@ -213,7 +213,7 @@ def test_two_processes_same_checkpoint(tmp_path):
                                                  "CY": 64.0})
     with open(tmp_path / "tiny.yaml", "w") as f:
         yaml.safe_dump(cfg, f)
-    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="1")
+    env = subprocess_env()
     procs = []
     for i in range(2):
         (tmp_path / str(i)).mkdir()

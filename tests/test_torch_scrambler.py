@@ -31,16 +31,6 @@ B = 12
 N_BEND = {"random_2": 5, "random_3": 14}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def feed():
     """A MANO feed as the pose generator builds it: a seeded pose, its FK

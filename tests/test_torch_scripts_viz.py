@@ -33,16 +33,6 @@ SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "synthetic_smoke.yaml")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _twin_calls(monkeypatch):
     """Counts the raster wrappers' calls (on the CPU each runs its twin)."""
     calls = {"raster_uv": 0, "raster_rgb": 0}

@@ -36,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-NO_FMA_ENV = {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_cpu_max_isa=AVX"}
+from tests._proc import NO_FMA, subprocess_env
+
 CFG_PATH = "config/synthetic_smoke.yaml"
 
 
@@ -200,15 +201,15 @@ def _unflatten(ref, prefix):
 def jax_ref(tmp_path_factory):
     d = tmp_path_factory.mktemp("slice_ref")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, **NO_FMA_ENV,
-               PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    env = subprocess_env(*NO_FMA)
     res = subprocess.run([sys.executable, __file__, str(d / "ref.npz"), str(d / "jax_cache")],
-                         env=env, capture_output=True, text=True, timeout=900, cwd=repo)
+                         env=env, capture_output=True, text=True, timeout=240, cwd=repo)
     assert res.returncode == 0, res.stderr[-4000:]
     with np.load(d / "ref.npz") as z:
         return {k: z[k] for k in z.files}, d
 
 
+@pytest.mark.limit(330)
 def test_val_and_mining_epochs(jax_ref):
     from artiboost_torch.artiboost.loader import ArtiBoostLoader
     from artiboost_torch.criterions import build_criterion

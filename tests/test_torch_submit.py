@@ -51,16 +51,6 @@ CFG_EVAL = os.path.join(REPO, "config_eval", "eval_ho3dv2_clasbased_artiboost.ya
 CFG_SMOKE = os.path.join(REPO, "config", "synthetic_smoke.yaml")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 class _Arg:
     exp_id = "smoke"
     resume = None

@@ -46,16 +46,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OBJS = ["003_cracker_box", "006_mustard_bottle"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 class _Arg:
     exp_id = "cfgs"
     resume = None

@@ -4,20 +4,8 @@ JAX's ``train/submit_reload.py`` ``main_worker`` on a DexYCB s0 test split
 on disk, from the same weights; the cut, the fixture and the bounds are
 ``tests/test_torch_submit_configs.py``'s (a file of its own so that the
 suite's workers share the two JAX runs)."""
-import pytest
-import torch
 
 from tests.test_torch_submit_configs import against_jax, write_dexycb
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One torch thread while this file runs: the suite's workers share
-    the host's cores (see tests/test_torch_refiner.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_dexycb_against_jax(tmp_path, monkeypatch):

@@ -30,7 +30,6 @@ ranks' process group one of 300 s."""
 import ast
 import copy
 import json
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -44,6 +43,7 @@ from artiboost_torch import submit_reload
 from artiboost_torch.models.arch import build_arch
 from artiboost_torch.parallel import mesh
 from artiboost_torch.utils.config import load_config
+from tests._proc import subprocess_env
 
 REPO = Path(__file__).resolve().parents[1]
 CFG_EVAL = REPO / "config_eval" / "eval_ho3dv2_clasbased_artiboost.yaml"
@@ -76,7 +76,7 @@ def runs(tmp_path_factory):
         torch.manual_seed(5)
         arch = build_arch(cfg["ARCH"], cfg["DATA_PRESET"])
     torch.save({"epoch": 0, "model": arch.state_dict()}, d / "latest.pt")
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = subprocess_env()
     procs = {}
     for name, extra in (("two", ["--n_devices", "2"]), ("one", [])):
         (d / name).mkdir()
@@ -142,14 +142,8 @@ def test_batch_that_does_not_tile_runs_in_one_process(runs, monkeypatch, caplog)
 
     monkeypatch.setattr(mesh, "spawn_ranks", spawn)
     monkeypatch.chdir(runs["dir"])
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        out = submit_reload.main(["--cfg", "eval.yaml", "--reload", "latest.pt", "--device",
-                                  "cpu", "--exp_id", "tail", "--n_devices", "2",
-                                  "--batch_size", "3"])
-    finally:
-        torch.set_num_threads(n)
+    out = submit_reload.main(["--cfg", "eval.yaml", "--reload", "latest.pt", "--device", "cpu",
+                              "--exp_id", "tail", "--n_devices", "2", "--batch_size", "3"])
     assert out["ranks"] == 1 and out["batches"] == 4 and len(out["param_digests"]) == 1
     assert any("does not tile 2 ranks: one process evaluates" in r.getMessage()
                for r in caplog.records)

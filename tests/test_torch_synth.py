@@ -14,7 +14,6 @@ IMAGE_BF16 at 8e-3 (one bf16 ulp at 1.0). IMAGE in float32: at least
 another order, which moves a vertex shade by ~1e-7 and can flip its
 16-bit quantization step (4/65535 = 6.1e-5, times <= 2.2 of colour
 jitter gain)."""
-import os
 import subprocess
 import sys
 
@@ -22,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-NO_FMA_ENV = {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_cpu_max_isa=AVX"}
+from tests._proc import NO_FMA, subprocess_env
+
 OBJS = ["synthobj_0", "synthobj_1", "synthobj_2", "synthobj_3"]
 B = 4
 CFG = dict(image_size=128, raw_size=256, cx=128.0, cy=128.0)
@@ -85,11 +85,9 @@ def _jax_reference(path_out):
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("synth_ref") / "ref.npz"
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, **NO_FMA_ENV,
-               PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    env = subprocess_env(*NO_FMA)
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
-                         capture_output=True, text=True, timeout=900)
+                         capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-4000:]
     with np.load(out) as z:
         return {k: z[k] for k in z.files}

@@ -18,9 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests._proc import NO_FMA, subprocess_env, time_left
 from tests.test_torch_train import CFG_PATH, jax_loss_draws, jax_ordinal_draws
-
-NO_FMA_ENV = {"JAX_PLATFORMS": "cpu", "XLA_FLAGS": "--xla_cpu_max_isa=AVX"}
 
 
 def slice_config(cache_dir):
@@ -246,15 +245,17 @@ class ReplayDraws:
 def jax_slice(tmp_path_factory):
     d = tmp_path_factory.mktemp("train_slice_ref")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, **NO_FMA_ENV,
-               PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    # XLA's own threads, one a core, as when the bounds were read: on one
+    # thread LossesMetric departs by 8.81e-3 against its 1e-2
+    env = subprocess_env(*NO_FMA, "--xla_cpu_multi_thread_eigen=true")
     res = subprocess.run([sys.executable, __file__, str(d / "ref.npz"), str(d / "jax_cache")],
-                         env=env, capture_output=True, text=True, timeout=900, cwd=repo)
+                         env=env, capture_output=True, text=True, timeout=time_left(), cwd=repo)
     assert res.returncode == 0, res.stderr[-4000:]
     with np.load(d / "ref.npz") as z:
         return {k: z[k] for k in z.files}, d
 
 
+@pytest.mark.limit(1080)
 def test_train_slice_against_jax(jax_slice):
     """``run`` on the cut config with every draw of the JAX run replayed and
     the flax initialisation carried across. Exact: the replay counts, the
@@ -282,8 +283,15 @@ def test_train_slice_against_jax(jax_slice):
     ref, d = jax_slice
     cfg = slice_config(d / "torch_cache")
     replay = ReplayDraws(ref)
-    out = run(cfg, epochs=1, device="cpu", draws=replay,
-              model_state=hybrid_baseline_from_flax(_unflatten(ref, "model/")))
+    # the port at the torch threads of the 8-core host the bounds were read
+    # on: at one thread Mean3DEPE departs by 1.34e-3 against its 4.7e-4
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        out = run(cfg, epochs=1, device="cpu", draws=replay,
+                  model_state=hybrid_baseline_from_flax(_unflatten(ref, "model/")))
+    finally:
+        torch.set_num_threads(n_threads)
     assert replay.count == {"triplets": 2, "poses": 2, "synth": 4, "perm": 2, "loss": 4}
     hist = out["history"][0]
     assert hist["train"]["steps"] == 4 and "val" not in hist

@@ -75,18 +75,14 @@ def test_train_steps_track_jax(path):
         updates, opt_state = tx.update(grads, opt_state, params)
         return optax.apply_updates(params, updates), stats, opt_state, losses
 
-    loss_dev, n_threads = 0.0, torch.get_num_threads()
-    torch.set_num_threads(1)  # the reductions' order, whatever the machine
-    try:
-        for i, batch in enumerate(batches):
-            key = jax.random.PRNGKey(100 + i)
-            params, stats, opt_state, jl = jax_step(
-                params, stats, opt_state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
-            _, tl = step({k: torch.from_numpy(v) for k, v in batch.items()},
-                         to_torch_draws(jax_loss_draws(jax, key, jcrit)))
-            loss_dev = max(loss_dev, abs(float(tl["final_loss"]) / float(jl["final_loss"]) - 1))
-    finally:
-        torch.set_num_threads(n_threads)
+    loss_dev = 0.0  # at one thread (conftest.py): the reductions' order, whatever the machine
+    for i, batch in enumerate(batches):
+        key = jax.random.PRNGKey(100 + i)
+        params, stats, opt_state, jl = jax_step(
+            params, stats, opt_state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+        _, tl = step({k: torch.from_numpy(v) for k, v in batch.items()},
+                     to_torch_draws(jax_loss_draws(jax, key, jcrit)))
+        loss_dev = max(loss_dev, abs(float(tl["final_loss"]) / float(jl["final_loss"]) - 1))
     want = flat(params, stats)
     param_dev = max(float((p.detach() - torch.from_numpy(np.asarray(want[n]))).norm()
                           / (torch.from_numpy(np.asarray(want[n])) - start[n]).norm())

@@ -66,14 +66,6 @@ REF_LR, IK_LR = 1e-4, 1e-3
 t_mano = partial(synthetic_mano_model, device="cpu")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
